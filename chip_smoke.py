@@ -40,8 +40,12 @@ EUCLID_TPU = "src/repro/kernels/euclid/euclid.py:115"
 LINTRA_SRC = "src/repro_torch/kernels/lintra/lintra.py"
 LINTRA_TPU = "src/repro/kernels/lintra/lintra.py:67"
 
-#: declared tolerances of the two kernels (their KernelDef.tolerance)
-EUCLID_TOL = {"rtol": 1e-3, "atol": 1e-5}
+#: limits of the kernels against their plain versions. euclid's is far
+#: tighter than its KernelDef.tolerance (rtol 1e-3): a sound fp32 kernel
+#: stays well inside it, and a TF32 product (about three digits) must not
+#: pass it, which check_euclid verifies on the card. lintra's is its
+#: KernelDef.tolerance.
+EUCLID_TOL = {"rtol": 2e-5, "atol": 1e-5}
 LINTRA_TOL = {"rtol": 1e-5, "atol": 1e-7}
 
 
@@ -93,13 +97,20 @@ def ptxas_summary(log: Path) -> dict:
             "max_spill_store_bytes": max(spills, default=0)}
 
 
-def check_euclid(lib, dev, gen) -> tuple[float, int]:
+def tol_used(got, want, tol: dict) -> float:
+    """The largest ``|got - want| / (atol + rtol * |want|)``: at most 1
+    where ``torch.allclose`` passes."""
+    return float(((got - want).abs() / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def check_euclid(lib, dev, gen) -> dict:
     """Every instantiation against the plain version at ragged shapes,
-    plus a few points at simlarge. Returns (max abs error, checks)."""
+    plus a few points at simlarge, then a control: a TF32 product at
+    simlarge must fail the same limit."""
     import torch
 
     from repro_torch.kernels.euclid.euclid import PHASE1, euclid_cuda, euclid_plain
-    from repro_torch.kernels.euclid.ops import make_space
+    from repro_torch.kernels.euclid.ops import DEFAULT_POINT, make_space, reference_simd
 
     cap = lib_capacity_kb(dev)
     cases = []
@@ -118,7 +129,7 @@ def check_euclid(lib, dev, gen) -> tuple[float, int]:
     big = make_space(16384, 1024, 128, vmem_kb=cap)
     picks = [p for i, p in enumerate(big.iter_valid()) if i % 271 == 0]
     cases += [((16384, 1024, 128), p) for p in picks]
-    worst, inputs = 0.0, {}
+    worst, used, inputs = 0.0, 0.0, {}
     for (n, m, d), point in cases:
         if (n, m, d) not in inputs:
             inputs[(n, m, d)] = (
@@ -130,13 +141,32 @@ def check_euclid(lib, dev, gen) -> tuple[float, int]:
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         worst = max(worst, err)
+        used = max(used, tol_used(got, want, EUCLID_TOL))
         if not torch.allclose(got, want, **EUCLID_TOL):
             fail(f"euclid {point} at {(n, m, d)}: max|err| {err:.3e} beyond "
                  f"{EUCLID_TOL}")
     print(f"euclid: {len(cases)} checks over {len(covered)} instantiations, "
           f"max|err| {worst:.3e} within rtol={EUCLID_TOL['rtol']} "
-          f"atol={EUCLID_TOL['atol']}")
-    return worst, len(cases)
+          f"atol={EUCLID_TOL['atol']} ({used:.3f} of the limit)")
+
+    # control: the same limit must refuse a TF32 product
+    x, c = inputs[(16384, 1024, 128)]
+    want = euclid_plain(x, c, DEFAULT_POINT)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = reference_simd(128)(x, c)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    tf32_err = float((tf32 - want).abs().max())
+    tf32_used = tol_used(tf32, want, EUCLID_TOL)
+    if torch.allclose(tf32, want, **EUCLID_TOL):
+        fail(f"a TF32 product (max|err| {tf32_err:.3e}) passes the euclid "
+             f"limit {EUCLID_TOL}: the check cannot see a loss of precision")
+    print(f"euclid control: a TF32 product at simlarge, max|err| "
+          f"{tf32_err:.3e} ({tf32_used:.1f} of the limit), is refused")
+    return {"max_abs_err": worst, "checks": len(cases), "tol_used": used,
+            "tf32_max_abs_err": tf32_err, "tf32_tol_used": tf32_used}
 
 
 def lib_capacity_kb(dev) -> int:
@@ -153,39 +183,37 @@ def check_lintra(dev, gen) -> tuple[float, int, list, list]:
     import torch
 
     from repro_torch.kernels.lintra.lintra import (
-        LintraKernel, compile_key, lintra_plain, lintra_triton)
+        LintraKernel, cold_triton_cache, compile_key, lintra_plain, lintra_triton)
     from repro_torch.kernels.lintra.ops import make_space
 
     cap = lib_capacity_kb(dev)
-    # its own binaries and a cold on-disk cache: each first compile is timed
-    cache = ROOT / "build" / "repro_torch" / "triton-cache" / f"smoke-{time.time_ns()}"
-    cache.mkdir(parents=True)
-    os.environ["TRITON_CACHE_DIR"] = str(cache)
-    kernel = LintraKernel()
     worst, n_checks, compile_s, first_launch_s, seen = 0.0, 0, [], [], set()
-    for (h, w), stride in (((1000, 333), 9), ((2662, 5500), 17)):
-        x = torch.randn(h, w * 3, generator=gen, device=dev)
-        a = torch.tensor([1.5, 0.5, 2.0], device=dev)
-        b = torch.tensor([0.1, -0.2, 0.3], device=dev)
-        points = list(make_space(h, w, 3, vmem_kb=cap).iter_valid())[::stride][:10]
-        for point in points:
-            key = compile_key(point, 3, w * 3)
-            t0 = time.perf_counter()
-            kernel.compile(point, 3, w * 3, x.dtype, dev)
-            t1 = time.perf_counter()
-            got = lintra_triton(x, a, b, point, kernel=kernel)
-            torch.cuda.synchronize()
-            if key not in seen:
-                seen.add(key)
-                compile_s.append(t1 - t0)
-                first_launch_s.append(time.perf_counter() - t1)
-            want = lintra_plain(x, a, b)
-            err = float((got - want).abs().max())
-            worst = max(worst, err)
-            n_checks += 1
-            if not torch.allclose(got, want, **LINTRA_TOL):
-                fail(f"lintra {point} at {(h, w)}: max|err| {err:.3e} beyond "
-                     f"{LINTRA_TOL}")
+    # its own binaries and a cold on-disk cache: each first compile is timed
+    with cold_triton_cache():
+        kernel = LintraKernel()
+        for (h, w), stride in (((1000, 333), 9), ((2662, 5500), 17)):
+            x = torch.randn(h, w * 3, generator=gen, device=dev)
+            a = torch.tensor([1.5, 0.5, 2.0], device=dev)
+            b = torch.tensor([0.1, -0.2, 0.3], device=dev)
+            points = list(make_space(h, w, 3, vmem_kb=cap).iter_valid())[::stride][:10]
+            for point in points:
+                key = compile_key(point, 3, w * 3)
+                t0 = time.perf_counter()
+                kernel.compile(point, 3, w * 3, x.dtype, dev)
+                t1 = time.perf_counter()
+                got = lintra_triton(x, a, b, point, kernel=kernel)
+                torch.cuda.synchronize()
+                if key not in seen:
+                    seen.add(key)
+                    compile_s.append(t1 - t0)
+                    first_launch_s.append(time.perf_counter() - t1)
+                want = lintra_plain(x, a, b)
+                err = float((got - want).abs().max())
+                worst = max(worst, err)
+                n_checks += 1
+                if not torch.allclose(got, want, **LINTRA_TOL):
+                    fail(f"lintra {point} at {(h, w)}: max|err| {err:.3e} "
+                         f"beyond {LINTRA_TOL}")
     print(f"lintra: {n_checks} checks, max|err| {worst:.3e} within "
           f"rtol={LINTRA_TOL['rtol']} atol={LINTRA_TOL['atol']}; per new "
           f"binary, Triton compile s {[round(t, 3) for t in compile_s]}, "
@@ -201,6 +229,9 @@ def main() -> int:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke test runs on the card")
+    # Triton's on-disk cache stays inside the checkout's build directory
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          str(ROOT / "build" / "repro_torch" / "triton-cache" / "default"))
     try:
         from repro_torch.bench import table3
         from repro_torch.kernels.euclid import ops as euclid_ops
@@ -234,7 +265,7 @@ def main() -> int:
     euclid_cuda.launches = 0
     lintra_triton.launches = 0
     t0 = time.perf_counter()
-    rows = table3.run(ref_target_s=1.0, device=dev)["rows"]
+    rows = table3.run(device=dev)["rows"]
     main_s = time.perf_counter() - t0
     launches = {"euclid": euclid_cuda.launches, "lintra": lintra_triton.launches}
     print(f"main path: {main_s:.1f} s, kernel launches {launches}")
@@ -261,7 +292,7 @@ def main() -> int:
 
     # -- 3. each kernel against its plain version -----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    e_err, e_checks = check_euclid(lib, dev, gen)
+    e_check = check_euclid(lib, dev, gen)
     l_err, l_checks, l_compile_s, l_first_s = check_lintra(dev, gen)
     report["triton_compile_s"] = l_compile_s
     report["triton_first_launch_s"] = l_first_s
@@ -303,12 +334,16 @@ def main() -> int:
     kernels = [
         {"name": "euclid", "route": "cuda", "source": EUCLID_SRC,
          "replaces": EUCLID_TPU, "launches": launches["euclid"],
-         "max_abs_err": e_err, "ms": e["oat_ms"], "plain_ms": e["plain_ms"],
+         "max_abs_err": e_check["max_abs_err"], "ms": e["oat_ms"],
+         "plain_ms": e["plain_ms"],
          "bound_ms": e_bound,
          "bound_by": "operations" if e_flops / PEAK_FP32_FLOPS > e_bytes / PEAK_BYTES_S else "bytes",
          "library_ms": e["library_ms"], "default_ms": e["default_ms"],
          "bsat_ms": e["bsat_ms"], "point": e_oat, "bsat_point": er["bsat_point"],
-         "shape": [N, M, D], "checks": e_checks},
+         "shape": [N, M, D], "checks": e_check["checks"],
+         "tolerance": EUCLID_TOL, "tol_used": e_check["tol_used"],
+         "tf32_control_max_abs_err": e_check["tf32_max_abs_err"],
+         "tf32_control_tol_used": e_check["tf32_tol_used"]},
         {"name": "lintra", "route": "triton", "source": LINTRA_SRC,
          "replaces": LINTRA_TPU, "launches": launches["lintra"],
          "max_abs_err": l_err, "ms": lt["oat_ms"], "plain_ms": lt["plain_ms"],

@@ -21,6 +21,10 @@ leftover-free tiles exist), and VIPS pomegranate / vulture / bigben
 (1200x1600, 2336x2336, 2662x5500, 3 bands, float32). Inputs are made
 with numpy from ``--seed``.
 
+Each input runs a fixed number of calls (``CALLS``): the JAX benchmark's
+800, raised for the VIPS images so that the Ref application lasts about
+1 s on an H100, as the paper's runs do. Every run does the same work.
+
 Run on the card::
 
     PYTHONPATH=src python -m repro_torch.bench.table3 [--quick] [--calls N]
@@ -32,9 +36,8 @@ check, not a measurement).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
-import math
-import os
 import time
 from pathlib import Path
 from typing import Any, Callable, Sequence
@@ -47,11 +50,10 @@ from repro_torch.core.decision import RegenerationPolicy
 from repro_torch.core.evaluator import Evaluator, _block
 from repro_torch.core.static_tuner import static_autotune
 from repro_torch.interop import resolve_device, to_torch
-from repro_torch.kernels._build import BUILD_DIR
 from repro_torch.kernels.euclid import ops as euclid
 from repro_torch.kernels.euclid.euclid import euclid_cuda
 from repro_torch.kernels.lintra import ops as lintra
-from repro_torch.kernels.lintra.lintra import lintra_triton
+from repro_torch.kernels.lintra.lintra import cold_triton_cache, lintra_triton
 
 #: Streamcluster sim inputs: name -> (points n, dimension d)
 EUCLID_SIZES = {"simsmall": (4096, 32), "simmedium": (8192, 64),
@@ -61,10 +63,17 @@ M_CENTERS = 1024
 LINTRA_SIZES = {"pomegranate": (1200, 1600), "vulture": (2336, 2336),
                 "bigben": (2662, 5500)}
 BANDS = 3
-CALLS = 800
+#: the JAX benchmark's calls per application run
+DEFAULT_CALLS = 800
+#: calls per input: 800, raised for VIPS so that Ref lasts about 1 s on
+#: an NVIDIA H100 80GB HBM3 (Streamcluster's Ref already takes longer)
+CALLS = {"simsmall": 800, "simmedium": 800, "simlarge": 800,
+         "pomegranate": 6400, "vulture": 2200, "bigben": 820}
 
-#: checks of the tuned output against Spec-Ref (plain PyTorch)
-EUCLID_TOL = {"rtol": 1e-3, "atol": 1e-3}
+#: checks of the tuned output against Spec-Ref (plain PyTorch). The
+#: euclid limit fails a TF32 product (about three digits) while a sound
+#: fp32 kernel stays about 20 times inside it (PERF.md)
+EUCLID_TOL = {"rtol": 2e-5, "atol": 1e-5}
 LINTRA_TOL = {"rtol": 1e-5, "atol": 1e-5}
 
 ARTIFACT_DIR = Path(__file__).resolve().parents[3] / "bench_artifacts"
@@ -109,15 +118,6 @@ def _wall_online(at: OnlineAutotuner, args: Sequence[Any], calls: int):
     return time.perf_counter() - t0, out
 
 
-def _calls_for(ref: Callable[..., Any], args: Sequence[Any], calls: int,
-               ref_target_s: float | None) -> int:
-    """``calls``, raised so the Ref application lasts ``ref_target_s``."""
-    if ref_target_s is None:
-        return calls
-    per_call = _wall(ref, args, 10) / 10
-    return max(calls, math.ceil(ref_target_s / per_call))
-
-
 def _check(out: torch.Tensor, want: torch.Tensor, tol: dict) -> tuple[float, bool]:
     err = float((out - want).abs().max())
     return err, bool(torch.allclose(out, want, **tol))
@@ -147,8 +147,8 @@ def _row(bench: str, size_name: str, dev: torch.device, calls: int,
 
 # ------------------------------------------------------------------ cases
 def bench_euclid(size_name: str, n_points: int, dim: int, *,
-                 m_centers: int = M_CENTERS, calls: int = CALLS,
-                 ref_target_s: float | None = None, seed: int = 0,
+                 m_centers: int = M_CENTERS, calls: int = DEFAULT_CALLS,
+                 seed: int = 0,
                  max_points: int = 30,
                  device: "torch.device | str | None" = None) -> dict:
     dev = resolve_device(device)
@@ -159,7 +159,6 @@ def bench_euclid(size_name: str, n_points: int, dim: int, *,
     args = (x, c)
     ref = euclid.reference_sisd(dim)
     spec_ref = euclid.reference_simd(dim)
-    calls = _calls_for(ref, args, calls, ref_target_s)
     t_ref = _wall(ref, args, calls)
     t_spec = _wall(spec_ref, args, calls)
 
@@ -184,44 +183,39 @@ def bench_euclid(size_name: str, n_points: int, dim: int, *,
 
 
 def bench_lintra(size_name: str, hw: tuple[int, int], *, bands: int = BANDS,
-                 calls: int = CALLS, ref_target_s: float | None = None,
-                 seed: int = 0, max_points: int = 25,
+                 calls: int = DEFAULT_CALLS, seed: int = 0,
+                 max_points: int = 25,
                  device: "torch.device | str | None" = None) -> dict:
     dev = resolve_device(device)
     H, W = hw
-    triton_cache = None
-    if dev.type == "cuda":
-        # O-AT pays every Triton compile: a fresh cache for each case
-        triton_cache = BUILD_DIR / "triton-cache" / f"{os.getpid()}-{size_name}-{time.time_ns()}"
-        triton_cache.mkdir(parents=True)
-        os.environ["TRITON_CACHE_DIR"] = str(triton_cache)
     img, a, b = to_torch(lintra_inputs(H, W, bands, seed), dev)
     args = (img, a, b)
     ref = lintra.reference_sisd(bands, W)
     spec_ref = lintra.reference_simd(bands, W)
-    calls = _calls_for(ref, args, calls, ref_target_s)
     t_ref = _wall(ref, args, calls)
     t_spec = _wall(spec_ref, args, calls)
 
-    comp = lintra.make_lintra_compilette(H, W, bands, device=dev)
-    ev = Evaluator(mode="training", groups=1, group_size=3,
-                   make_args=lambda: args)
-    at = OnlineAutotuner(comp, ev, policy=RegenerationPolicy(0.05, 0.15),
-                         specialization={"bands": bands, "width": W},
-                         reference_fn=ref, wake_every=2)
-    before = lintra_triton.launches
-    t_oat, out = _wall_online(at, args, calls)
-    launches = lintra_triton.launches - before
-    stats = at.stats()
-    err, ok = _check(out, spec_ref(*args), LINTRA_TOL)
+    # O-AT pays every Triton compile: a cold cache for each case
+    cold = dev.type == "cuda"
+    with cold_triton_cache() if cold else contextlib.nullcontext():
+        comp = lintra.make_lintra_compilette(H, W, bands, device=dev)
+        ev = Evaluator(mode="training", groups=1, group_size=3,
+                       make_args=lambda: args)
+        at = OnlineAutotuner(comp, ev, policy=RegenerationPolicy(0.05, 0.15),
+                             specialization={"bands": bands, "width": W},
+                             reference_fn=ref, wake_every=2)
+        before = lintra_triton.launches
+        t_oat, out = _wall_online(at, args, calls)
+        launches = lintra_triton.launches - before
+        stats = at.stats()
+        err, ok = _check(out, spec_ref(*args), LINTRA_TOL)
 
-    bs_point, bs_score, _ = static_autotune(
-        comp, ev, specialization={"bands": bands, "width": W},
-        max_points=max_points)
+        bs_point, bs_score, _ = static_autotune(
+            comp, ev, specialization={"bands": bands, "width": W},
+            max_points=max_points)
     return _row("lintra", size_name, dev, calls, t_ref, t_spec, t_oat,
                 bs_score, stats, bs_point, launches, err, ok, out,
-                H=H, W=W, bands=bands,
-                triton_cache="cold" if triton_cache else None)
+                H=H, W=W, bands=bands, triton_cache="cold" if cold else None)
 
 
 # ------------------------------------------------------------------ report
@@ -258,21 +252,19 @@ def public(row: dict) -> dict:
     return {k: v for k, v in row.items() if k != "_out"}
 
 
-def run(*, quick: bool = False, calls: int = CALLS,
-        ref_target_s: float | None = None, seed: int = 0,
+def run(*, quick: bool = False, calls: int | None = None, seed: int = 0,
         device: "torch.device | str | None" = None) -> dict:
+    """Table 3 at the PARSEC sizes; ``calls`` overrides :data:`CALLS`."""
     dev = resolve_device(device)
     euclid_sizes = dict(list(EUCLID_SIZES.items())[:1]) if quick else EUCLID_SIZES
     lintra_sizes = dict(list(LINTRA_SIZES.items())[:1]) if quick else LINTRA_SIZES
     rows = []
     for name, (n, dim) in euclid_sizes.items():
-        rows.append(bench_euclid(name, n, dim, calls=calls,
-                                 ref_target_s=ref_target_s, seed=seed,
-                                 device=dev))
+        rows.append(bench_euclid(name, n, dim, calls=calls or CALLS[name],
+                                 seed=seed, device=dev))
     for name, hw in lintra_sizes.items():
-        rows.append(bench_lintra(name, hw, calls=calls,
-                                 ref_target_s=ref_target_s, seed=seed,
-                                 device=dev))
+        rows.append(bench_lintra(name, hw, calls=calls or CALLS[name],
+                                 seed=seed, device=dev))
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     print(table(rows, COLS, f"Table 3 — execution times on {name}, all "
                             "overheads included"))
@@ -284,15 +276,13 @@ def main(argv: Sequence[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
                         help="first size of each kernel only")
-    parser.add_argument("--calls", type=int, default=CALLS)
-    parser.add_argument("--ref-target-s", type=float, default=None,
-                        help="raise calls so the Ref run lasts this long")
+    parser.add_argument("--calls", type=int, default=None,
+                        help="calls per input (default: the CALLS table)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None,
                         help="default: the CUDA card; 'cpu' for plain PyTorch")
     args = parser.parse_args(argv)
-    rows = run(quick=args.quick, calls=args.calls,
-               ref_target_s=args.ref_target_s, seed=args.seed,
+    rows = run(quick=args.quick, calls=args.calls, seed=args.seed,
                device=args.device)["rows"]
     bad = [f"{r['bench']}/{r['input']}" for r in rows if not r["ok"]]
     if bad:

@@ -37,10 +37,17 @@ is imported at the first compile.
 
 from __future__ import annotations
 
+import contextlib
+import os
+import tempfile
 import threading
-from typing import Any
+from pathlib import Path
+from typing import Any, Iterator
 
 import torch
+
+from repro_torch.kernels._build import BUILD_DIR
+from repro_torch.kernels.lintra.ref import lintra_ref_folded
 
 Point = dict[str, Any]
 
@@ -83,6 +90,27 @@ def _triton():
 
     tl = triton.language
     return triton
+
+
+@contextlib.contextmanager
+def cold_triton_cache() -> Iterator[Path]:
+    """Point Triton's on-disk cache at a new, empty directory under
+    ``build/repro_torch/triton-cache/`` while the block runs, so every
+    binary compiled inside it pays its whole compile. On exit the previous
+    ``TRITON_CACHE_DIR`` is restored and the directory deleted (binaries
+    already loaded stay usable)."""
+    parent = BUILD_DIR / "triton-cache"
+    parent.mkdir(parents=True, exist_ok=True)
+    before = os.environ.get("TRITON_CACHE_DIR")
+    with tempfile.TemporaryDirectory(dir=parent) as tmp:
+        os.environ["TRITON_CACHE_DIR"] = tmp
+        try:
+            yield Path(tmp)
+        finally:
+            if before is None:
+                os.environ.pop("TRITON_CACHE_DIR", None)
+            else:
+                os.environ["TRITON_CACHE_DIR"] = before
 
 
 def _next_pow2(n: int) -> int:
@@ -195,7 +223,7 @@ lintra_triton.launches = 0
 
 def lintra_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The kernel's function in plain PyTorch (any device): the folded
-    ``x (H, W*bands)`` times the tiled factors plus the tiled offsets.
-    Tiles, strips and order do not change an elementwise result."""
+    oracle ``lintra_ref_folded`` with ``ab = (tile(a), tile(b))``. Tiles,
+    strips and order do not change an elementwise result."""
     W = x.shape[1] // a.shape[0]
-    return x * a.repeat(W)[None, :] + b.repeat(W)[None, :]
+    return lintra_ref_folded(x, torch.stack([a.repeat(W), b.repeat(W)]))

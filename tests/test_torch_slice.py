@@ -66,6 +66,45 @@ def test_lintra_row_matches_jax_oracle():
                                rtol=1e-5, atol=1e-5)
 
 
+def test_every_input_has_a_fixed_call_count():
+    assert set(table3.CALLS) == set(table3.EUCLID_SIZES) | set(table3.LINTRA_SIZES)
+    assert min(table3.CALLS.values()) >= table3.DEFAULT_CALLS
+
+
+def _round_to_tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32's 10 mantissa bits, as tensor cores read it."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_euclid_check_refuses_a_tf32_product():
+    """The Table 3 limit passes fp32 formulations and fails a product on
+    TF32-rounded inputs, the precision loss it exists to catch."""
+    xn, cn = table3.euclid_inputs(512, 256, 128, seed=0)
+    x, c = torch.from_numpy(xn), torch.from_numpy(cn)
+    want = torch.tensor(np.asarray(jax_euclid_ref(xn, cn)))
+    fp32 = (x * x).sum(1, keepdim=True) + (c * c).sum(1) - 2.0 * (x @ c.T)
+    tf32 = ((x * x).sum(1, keepdim=True) + (c * c).sum(1)
+            - 2.0 * (_round_to_tf32(x) @ _round_to_tf32(c).T))
+    assert table3._check(fp32, want, table3.EUCLID_TOL)[1]
+    assert not table3._check(tf32, want, table3.EUCLID_TOL)[1]
+
+
+def test_cold_triton_cache_restores_the_environment(monkeypatch, tmp_path):
+    from repro_torch.kernels.lintra import lintra as lintra_mod
+
+    monkeypatch.setattr(lintra_mod, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("TRITON_CACHE_DIR", "before")
+    with lintra_mod.cold_triton_cache() as cache:
+        assert os.environ["TRITON_CACHE_DIR"] == str(cache)
+        assert cache.parent == tmp_path / "triton-cache" and not any(cache.iterdir())
+    assert os.environ["TRITON_CACHE_DIR"] == "before" and not cache.exists()
+    monkeypatch.delenv("TRITON_CACHE_DIR")
+    with lintra_mod.cold_triton_cache():
+        pass
+    assert "TRITON_CACHE_DIR" not in os.environ
+
+
 def test_table_and_public_rows():
     row = table3.bench_lintra("tiny", (16, 12), calls=8, max_points=2,
                               device="cpu")
