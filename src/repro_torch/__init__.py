@@ -2,9 +2,12 @@
 
 The port of :mod:`repro` (JAX on a TPU), path for path: every module here
 names its reference under ``src/repro/``. The subpackages
-(``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.bench``)
-are importable directly; the names below resolve lazily, so ``import
-repro_torch`` loads nothing but this file.
+(``repro_torch.core``, ``repro_torch.kernels``, ``repro_torch.runtime``,
+``repro_torch.models``, ``repro_torch.bench``) are importable directly;
+the names below resolve lazily, so ``import repro_torch`` loads nothing
+but this file. ``repro_torch.tune`` / ``repro_torch.tuned`` are the
+session front door, as ``repro.tune`` / ``repro.tuned`` are in the
+reference.
 """
 
 import importlib
@@ -16,6 +19,10 @@ _EXPORTS = {
     "VirtualClock": "repro_torch.core",
     "static_autotune": "repro_torch.core",
     "get_catalog": "repro_torch.kernels",
+    "TuningConfig": "repro_torch.api",
+    "TuningSession": "repro_torch.api",
+    "tune": "repro_torch.api",
+    "tuned": "repro_torch.api",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -47,7 +47,7 @@ import torch
 
 from repro_torch.core.autotuner import OnlineAutotuner
 from repro_torch.core.decision import RegenerationPolicy
-from repro_torch.core.evaluator import Evaluator, _block
+from repro_torch.core.evaluator import Evaluator, block_until_ready
 from repro_torch.core.static_tuner import static_autotune
 from repro_torch.interop import resolve_device, to_torch
 from repro_torch.kernels.euclid import ops as euclid
@@ -101,11 +101,11 @@ def lintra_inputs(h: int, w: int, bands: int = BANDS, seed: int = 0):
 
 # ------------------------------------------------------------------ timing
 def _wall(fn: Callable[..., Any], args: Sequence[Any], calls: int) -> float:
-    _block(fn(*args))   # warm: allocator, first-call costs
+    block_until_ready(fn(*args))   # warm: allocator, first-call costs
     t0 = time.perf_counter()
     for _ in range(calls):
         out = fn(*args)
-    _block(out)
+    block_until_ready(out)
     return time.perf_counter() - t0
 
 
@@ -114,7 +114,7 @@ def _wall_online(at: OnlineAutotuner, args: Sequence[Any], calls: int):
     t0 = time.perf_counter()
     for _ in range(calls):
         out = at(*args)
-    _block(out)
+    block_until_ready(out)
     return time.perf_counter() - t0, out
 
 

@@ -1,8 +1,7 @@
 """Core contribution: online auto-tuning at the code-generation level.
 
-Public names of the ported core, resolved lazily from their modules (the
-registry, fleet and transfer layers of ``repro.core`` follow with the
-tuning front door).
+Public names of the ported core (those of ``repro.core``), resolved
+lazily from their modules.
 """
 
 import importlib
@@ -42,6 +41,15 @@ _EXPORTS = {
     "register_strategy": "explorer",
     "strategy_accepts": "explorer",
     "GATE_MODES": "gate",
+    "FleetBus": "persistence",
+    "LocalBackend": "persistence",
+    "RegistryBackend": "persistence",
+    "SharedFileBackend": "persistence",
+    "TunedRegistry": "persistence",
+    "compiler_version": "persistence",
+    "device_fallbacks": "persistence",
+    "device_fingerprint": "persistence",
+    "merge_snapshots": "persistence",
     "VariantGate": "gate",
     "ALL_PROFILES": "profiles",
     "EQUIVALENT_PAIRS": "profiles",
@@ -50,6 +58,11 @@ _EXPORTS = {
     "device_smem_kb": "profiles",
     "scaled_profile": "profiles",
     "static_autotune": "static_tuner",
+    "DeviceTraits": "transfer",
+    "TransferSeed": "transfer",
+    "device_traits": "transfer",
+    "similarity": "transfer",
+    "transfer_seeds": "transfer",
     "Param": "tuning_space",
     "Point": "tuning_space",
     "TuningSpace": "tuning_space",

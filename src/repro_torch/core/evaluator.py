@@ -38,7 +38,7 @@ def _cuda_device(values: Sequence[Any]) -> torch.device | None:
     return None
 
 
-def _block(x: Any) -> None:
+def block_until_ready(x: Any) -> None:
     """Wait until the device has finished producing ``x``.
 
     A CUDA result synchronizes its device, and a fault raised by the
@@ -61,7 +61,7 @@ def time_once(fn: Callable[..., Any], args: Sequence[Any]) -> float:
     if dev is None:
         t0 = time.perf_counter()
         out = fn(*args)
-        _block(out)
+        block_until_ready(out)
         return time.perf_counter() - t0
     stream = torch.cuda.current_stream(dev)
     start = torch.cuda.Event(enable_timing=True)

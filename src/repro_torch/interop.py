@@ -1,11 +1,14 @@
 """Carrying state between the JAX reference and the port.
 
-This system has no weights: what crosses between ``repro`` and
-``repro_torch`` is the kernels' arguments (numpy arrays, made once from
-a seed) and the tuning points (plain dicts keyed through
-``repro_torch.core.persistence._canon``, the same JSON form the JAX
-registry writes). The helpers here place those arrays on a device and
-lay the VIPS image out as the reference's folded kernel expects it.
+What crosses between ``repro`` and ``repro_torch`` is the kernels'
+arguments (numpy arrays, made once from a seed), the tuning points
+(plain dicts keyed through ``repro_torch.core.persistence._canon``, the
+same JSON form the JAX registry writes) and, for the language models,
+the param tree (:func:`params_from_jax`: ``jax.random`` cannot be
+reproduced with torch's generators, so the tests initialise once in JAX
+and carry the tree over). The helpers here place those arrays on a
+device and lay the VIPS image out as the reference's folded kernel
+expects it.
 """
 
 from __future__ import annotations
@@ -64,3 +67,48 @@ def fold_lintra(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             f"a and b must have shape ({bands},), got {tuple(a.shape)} "
             f"and {tuple(b.shape)}")
     return x.reshape(H, W * bands), torch.stack([a.repeat(W), b.repeat(W)])
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: Any,
+                    device: "torch.device | str | None" = None) -> dict:
+    """The JAX param tree (numpy arrays, stacked layers with their leading
+    L axis) -> the port's param tree on ``device`` (CUDA by default).
+
+    Every leaf is checked against the port's declaration of ``cfg``'s
+    model (same paths, same shapes) and cast to ``cfg.param_dtype``.
+    """
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import _iter_defs
+
+    dev = resolve_device(device)
+    out: dict = {}
+    seen = set()
+    for path, d in _iter_defs(build_model(cfg).param_defs()):
+        node: Any = tree
+        for key in path:
+            if not isinstance(node, Mapping) or key not in node:
+                raise KeyError(f"the JAX tree has no param {'/'.join(path)}")
+            node = node[key]
+        arr = np.asarray(node)
+        if arr.shape != d.shape:
+            raise ValueError(
+                f"param {'/'.join(path)}: JAX shape {arr.shape}, port declares "
+                f"{d.shape}")
+        target = out
+        for key in path[:-1]:
+            target = target.setdefault(key, {})
+        target[path[-1]] = torch.tensor(
+            np.asarray(arr, dtype=np.float32)).to(dev, cfg.param_dtype)
+        seen.add(path)
+
+    def leaves(node, path=()):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                yield from leaves(v, path + (k,))
+            else:
+                yield path + (k,)
+
+    extra = sorted("/".join(p) for p in leaves(tree) if p not in seen)
+    if extra:
+        raise ValueError(f"the JAX tree has params the port does not declare: {extra}")
+    return out

@@ -10,7 +10,14 @@ The library is keyed by a hash of every source and flag, so an edited
 kernel rebuilds and an unchanged one loads the library already built.
 Builds land in ``build/repro_torch/`` at the root of the checkout, which
 ``.gitignore`` lists. The build is set-up cost: callers time it and
-report it, it never hides inside a measurement.
+report it, it never hides inside a measurement. Different families
+build concurrently (one lock per family).
+
+:func:`load_family` is the common shape of a kernel family: a header of
+templates whose phase-1 tuning knobs are template parameters, one
+exported C launcher per instantiation (generated units that include the
+header and expand its instantiation macro), and an error-string
+function, all in one library.
 """
 
 from __future__ import annotations
@@ -34,7 +41,13 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_MU = threading.Lock()
+
+
+def _family_lock(name: str) -> threading.Lock:
+    with _LOCKS_MU:
+        return _LOCKS.setdefault(name, threading.Lock())
 
 
 def nvcc_path() -> str:
@@ -84,7 +97,7 @@ def build_library(name: str, sources: Mapping[str, str],
     (registers, shared memory, spills) are kept beside the library in
     ``<name>-<hash>.ptxas.log``.
     """
-    with _LOCK:
+    with _family_lock(name):
         digest = _digest(sources, include_dirs)
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         if out.exists():
@@ -124,3 +137,101 @@ def build_library(name: str, sources: Mapping[str, str],
             out.with_suffix(".ptxas.log").write_text("\n".join(logs))
             os.replace(lib_tmp, out)
         return BuiltLibrary(out, time.perf_counter() - t0, True)
+
+
+_ERROR_UNIT = """#include <cuda_runtime.h>
+extern "C" const char* {family}_error_string(int code) {{
+  return cudaGetErrorString((cudaError_t)code);
+}}
+"""
+
+
+class KernelLibrary:
+    """A family's built instantiations, resolved by exported symbol."""
+
+    def __init__(self, built: BuiltLibrary, family: str,
+                 symbols: Sequence[str], argtypes: Sequence[type]) -> None:
+        self.built = built
+        self.build_s = built.build_s
+        self.family = family
+        self.symbols = tuple(symbols)
+        lib = built.lib
+        err = getattr(lib, f"{family}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        self._error_string = err
+        self._constants: dict[str, int] = {}
+        self._fns: dict[str, ctypes._CFuncPtr] = {}
+        for sym in self.symbols:
+            fn = getattr(lib, sym)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            self._fns[sym] = fn
+
+    def resolve(self, symbol: str):
+        """The launcher of one instantiation (raises if it was not built)."""
+        fn = self._fns.get(symbol)
+        if fn is None:
+            raise KeyError(
+                f"no {self.family} instantiation {symbol}: the library holds "
+                f"the {len(self._fns)} points it was built for")
+        return fn
+
+    def constant(self, name: str) -> int:
+        """An exported ``long long name(void)`` of the library (such as an
+        instantiation's shared-memory footprint), read once."""
+        value = self._constants.get(name)
+        if value is None:
+            fn = getattr(self.built.lib, name)
+            fn.argtypes = []
+            fn.restype = ctypes.c_longlong
+            value = self._constants[name] = int(fn())
+        return value
+
+    def launch(self, symbol: str, *args) -> None:
+        """Launch one instantiation; a refused launch raises."""
+        rc = self.resolve(symbol)(*args)
+        if rc != 0:
+            raise RuntimeError(
+                f"{symbol} launch failed: "
+                f"{self._error_string(int(rc)).decode()}")
+
+
+def instantiation_units(family: str, header: str, lines: Sequence[str],
+                        n_units: int) -> dict[str, str]:
+    """Translation units of a family: its error-string unit, and the
+    instantiation lines dealt round-robin over ``n_units`` files that
+    include ``header``."""
+    units = {f"{family}_errors.cu": _ERROR_UNIT.format(family=family)}
+    for i in range(min(n_units, len(lines))):
+        body = [f'#include "{header}"', *lines[i::n_units]]
+        units[f"{family}_inst{i}.cu"] = "\n".join(body) + "\n"
+    return units
+
+
+_FAMILIES: dict[tuple, KernelLibrary] = {}
+_FAMILIES_MU = threading.Lock()
+
+
+def load_family(family: str, csrc: Path, header: str,
+                instantiations: Mapping[str, str],
+                argtypes: Sequence[type], *, n_units: int = 8) -> KernelLibrary:
+    """Build (once per process and source hash) and load a kernel family.
+
+    ``instantiations`` maps each exported launcher's symbol to the macro
+    line of ``header`` that defines it; the lines are dealt round-robin
+    over ``n_units`` translation units, compiled in parallel.
+    """
+    key = (family, tuple(sorted(instantiations.items())))
+    with _family_lock(f"load:{family}"):
+        with _FAMILIES_MU:
+            found = _FAMILIES.get(key)
+        if found is not None:
+            return found
+        lines = [line for _sym, line in sorted(instantiations.items())]
+        units = instantiation_units(family, header, lines, n_units)
+        built = build_library(family, units, include_dirs=[csrc])
+        lib = KernelLibrary(built, family, sorted(instantiations), argtypes)
+        with _FAMILIES_MU:
+            _FAMILIES[key] = lib
+        return lib

@@ -40,6 +40,8 @@ __all__ = [
     "example_fill",
     "get_catalog",
     "spec_capacity_kb",
+    "spec_on_cuda",
+    "torch_dtype",
 ]
 
 
@@ -65,10 +67,10 @@ def example_fill(shape: tuple[int, ...], dtype: Any, *,
         n *= int(s)
     idx = torch.arange(n, dtype=torch.int64, device=dev).to(torch.float32)
     vals = (torch.fmod(idx, 13.0) - 6.0) / 6.0 * scale
-    return vals.reshape(tuple(int(s) for s in shape)).to(_torch_dtype(dtype))
+    return vals.reshape(tuple(int(s) for s in shape)).to(torch_dtype(dtype))
 
 
-def _torch_dtype(dtype: Any) -> torch.dtype:
+def torch_dtype(dtype: Any) -> torch.dtype:
     """``torch.float32`` from a torch dtype or its name (``"float32"``)."""
     if isinstance(dtype, torch.dtype):
         return dtype
@@ -89,6 +91,13 @@ def spec_capacity_kb(spec: Mapping[str, Any]) -> int:
         return int(spec["vmem_kb"])
     dev = torch.device(spec.get("device", "cpu"))
     return device_smem_kb(dev) if dev.type == "cuda" else TPU_V5E.vmem_kb
+
+
+def spec_on_cuda(spec: Mapping[str, Any]) -> bool:
+    """Whether a spec's kernel runs on a CUDA device: its space is then
+    validated by what the Hopper kernel holds on chip (each kernel's
+    ``hopper`` capacity rule), not by the TPU kernel's VMEM footprint."""
+    return torch.device(spec.get("device", "cpu")).type == "cuda"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -28,14 +28,14 @@ CPU; on a CUDA tensor it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-import threading
 from pathlib import Path
-from typing import Any, Iterable, Sequence
+from typing import Any, Sequence
 
 import torch
 
-from repro_torch.kernels._build import BuiltLibrary, build_library
+from repro_torch.kernels._build import KernelLibrary, load_family
 
 Point = dict[str, Any]
 
@@ -45,6 +45,7 @@ CSRC = Path(__file__).with_name("csrc")
 PHASE1 = ("block_n", "block_m", "block_d", "unroll", "vectorize")
 
 _ORDERS = {"nm": 0, "mn": 1}
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def symbol(point: Point) -> str:
@@ -53,81 +54,27 @@ def symbol(point: Point) -> str:
     return f"euclid_bn{bn}_bm{bm}_bd{bd}_u{u}_v{v}"
 
 
-def _units(points: Sequence[tuple[int, ...]], n_units: int) -> dict[str, str]:
-    """Translation units: the error-string unit plus the instantiations
-    dealt round-robin over ``n_units`` files, compiled in parallel."""
-    units = {"euclid.cu": (CSRC / "euclid.cu").read_text()}
-    for i in range(min(n_units, len(points))):
-        lines = ['#include "euclid.cuh"']
-        lines += [f"EUCLID_INSTANTIATE({', '.join(map(str, p))})"
-                  for p in points[i::n_units]]
-        units[f"euclid_inst{i}.cu"] = "\n".join(lines) + "\n"
-    return units
+def instantiations(points: Sequence[tuple[int, ...]]) -> dict[str, str]:
+    """Symbol -> instantiation line of each phase-1 tuple (in
+    :data:`PHASE1` order)."""
+    return {symbol(dict(zip(PHASE1, p))): f"EUCLID_INSTANTIATE({', '.join(map(str, p))})"
+            for p in points}
 
 
-class EuclidLibrary:
-    """The built instantiations, resolved by tuning point."""
-
-    _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-
-    def __init__(self, built: BuiltLibrary, points: Iterable[tuple[int, ...]]):
-        self.built = built
-        self.build_s = built.build_s
-        self.points = tuple(points)
-        lib = built.lib
-        lib.euclid_error_string.argtypes = [ctypes.c_int]
-        lib.euclid_error_string.restype = ctypes.c_char_p
-        self._fns: dict[str, Any] = {}
-        self._smem: dict[str, int] = {}
-        for p in self.points:
-            name = symbol(dict(zip(PHASE1, p)))
-            fn = getattr(lib, name)
-            fn.argtypes = self._ARGTYPES
-            fn.restype = ctypes.c_int
-            smem = getattr(lib, name + "_smem")
-            smem.argtypes = []
-            smem.restype = ctypes.c_longlong
-            self._fns[name] = fn
-            self._smem[name] = int(smem())
-
-    def resolve(self, point: Point):
-        """The launcher of ``point``'s instantiation (raises if not built)."""
-        name = symbol(point)
-        fn = self._fns.get(name)
-        if fn is None:
-            raise KeyError(
-                f"no euclid instantiation for {name}: the library holds the "
-                f"{len(self._fns)} points of the tuning space it was built for")
-        return fn
-
-    def smem_bytes(self, point: Point) -> int:
-        self.resolve(point)
-        return self._smem[symbol(point)]
-
-    def error_string(self, code: int) -> str:
-        return self.built.lib.euclid_error_string(int(code)).decode()
-
-
-_LIBS: dict[tuple, EuclidLibrary] = {}
-_LIBS_LOCK = threading.Lock()
-
-
-def load_library(points: Sequence[tuple[int, ...]], *,
-                 n_units: int = 8) -> EuclidLibrary:
+@functools.lru_cache(maxsize=None)
+def load_library(points: tuple[tuple[int, ...], ...], *,
+                 n_units: int = 8) -> KernelLibrary:
     """Build (once per process and source hash) and load the instantiations
-    of ``points`` (phase-1 tuples in :data:`PHASE1` order)."""
-    key = tuple(sorted(set(map(tuple, points))))
-    with _LIBS_LOCK:
-        lib = _LIBS.get(key)
-        if lib is None:
-            built = build_library("euclid", _units(key, n_units),
-                                  include_dirs=[CSRC])
-            lib = _LIBS[key] = EuclidLibrary(built, key)
-        return lib
+    of ``points`` (phase-1 tuples in :data:`PHASE1` order). Memoised: the
+    wrapper calls it on every launch that is given no library, and
+    listing the instantiations again would cost more host time than the
+    kernel takes on the card."""
+    return load_family("euclid", CSRC, "euclid.cuh", instantiations(points),
+                       _ARGTYPES, n_units=n_units)
 
 
 def euclid_cuda(x: torch.Tensor, c: torch.Tensor, point: Point, *,
-                lib: EuclidLibrary | None = None) -> torch.Tensor:
+                lib: KernelLibrary | None = None) -> torch.Tensor:
     """(N, D) points x (M, D) centers -> (N, M) fp32 squared distances.
 
     On CUDA tensors: checks the arguments, launches the instantiation for
@@ -154,8 +101,9 @@ def euclid_cuda(x: torch.Tensor, c: torch.Tensor, point: Point, *,
     if lib is None:
         from repro_torch.kernels.euclid.ops import build_kernels
         lib = build_kernels(x.device)
-    fn = lib.resolve(point)
-    smem = lib.smem_bytes(point)
+    name = symbol(point)
+    lib.resolve(name)
+    smem = lib.constant(name + "_smem")
     cap = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
     if smem > cap:
         raise ValueError(
@@ -165,11 +113,8 @@ def euclid_cuda(x: torch.Tensor, c: torch.Tensor, point: Point, *,
     scratch = int(bool(point.get("scratch", 1)))
     out = torch.empty((N, M), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), c.data_ptr(), out.data_ptr(), N, M, D, order,
-            scratch, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"euclid launch failed for {symbol(point)}: {lib.error_string(rc)}")
+    lib.launch(name, x.data_ptr(), c.data_ptr(), out.data_ptr(), N, M, D, order,
+               scratch, stream)
     euclid_cuda.launches += 1
     return out
 

@@ -5,9 +5,9 @@ backends chosen by device:
 
   * CUDA — the hand-written Hopper kernel (``euclid.py``, CUDA C++): one
     template instantiation per phase-1 point, resolved at generation.
-  * CPU  — ``generate_torch_variant``, the eager mirror of the reference's
-    ``generate_jnp_variant`` (chunking, unrolled accumulators,
-    dot-vs-diff formulation, loop order).
+  * CPU  — ``euclid_plain``, the kernel's function in plain PyTorch
+    (chunk for chunk and partial for partial what the CUDA kernel and
+    ``euclid_pallas`` compute); the wrappers' CPU branch calls it too.
 
 The analytical cost model drives the 11 simulated device profiles,
 unchanged.
@@ -26,8 +26,9 @@ from repro_torch.core.profiles import TPU_V5E, DeviceProfile, device_smem_kb
 from repro_torch.core.tuning_space import Param, Point, TuningSpace
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.catalog import KernelDef, example_fill, spec_capacity_kb
+from repro_torch.kernels._build import KernelLibrary
 from repro_torch.kernels.euclid.euclid import (
-    PHASE1, EuclidLibrary, euclid_cuda, euclid_plain, load_library)
+    PHASE1, euclid_cuda, euclid_plain, load_library, symbol)
 from repro_torch.kernels.euclid.ref import euclid_ref
 
 DEFAULT_POINT: Point = {
@@ -90,7 +91,7 @@ def kernel_points(vmem_kb: int) -> tuple[tuple[int, ...], ...]:
     return tuple(sorted({tuple(p[k] for k in PHASE1) for p in space.iter_valid()}))
 
 
-def build_kernels(device: "torch.device | str | None" = None) -> EuclidLibrary:
+def build_kernels(device: "torch.device | str | None" = None) -> KernelLibrary:
     """Build (once) and load the instantiations of the card's tuning space.
 
     The capacity is the shared memory one block may use on ``device``.
@@ -101,53 +102,6 @@ def build_kernels(device: "torch.device | str | None" = None) -> EuclidLibrary:
     if dev.type != "cuda":
         raise ValueError(f"the euclid kernel builds for a CUDA device, not {dev}")
     return load_library(kernel_points(device_smem_kb(dev)))
-
-
-# ----------------------------------------------------------- torch variants
-def generate_torch_variant(point: Point, *, dim: int):
-    """Build a specialized eager PyTorch program for this tuning point.
-
-    The eager mirror of the reference's ``generate_jnp_variant``: ``dim``
-    is the run-time constant being specialized (the paper specializes the
-    Streamcluster point dimension into the compilette).
-    """
-    bd = min(point["block_d"], dim)
-    unroll = point["unroll"]
-    vect = bool(point["vectorize"])
-    order = point.get("order", "nm")
-    scratch = bool(point.get("scratch", 1))
-    n_chunks = math.ceil(dim / bd)
-
-    def chunk_dist(xs, cs):
-        if vect:
-            xx = torch.sum(xs * xs, dim=-1, keepdim=True)
-            cc = torch.sum(cs * cs, dim=-1, keepdim=True).T
-            return xx + cc - 2.0 * (xs @ cs.T)
-        diff = xs[:, None, :] - cs[None, :, :]
-        return torch.sum(diff * diff, dim=-1)
-
-    def fn(x, c):
-        x = x.to(torch.float32)
-        c = c.to(torch.float32)
-        if order == "mn":
-            x, c = c, x  # compute transposed, swap back at the end
-        # hotUF: `unroll` independent accumulator chains over d-chunks.
-        accs = [None] * unroll
-        for i in range(n_chunks):
-            sl = slice(i * bd, min((i + 1) * bd, dim))
-            part = chunk_dist(x[:, sl], c[:, sl])
-            j = i % unroll
-            accs[j] = part if accs[j] is None else accs[j] + part
-        live = [a for a in accs if a is not None]
-        if scratch:
-            out = torch.sum(torch.stack(live), dim=0) if len(live) > 1 else live[0]
-        else:
-            out = live[0]
-            for a in live[1:]:
-                out = out + a
-        return out.T if order == "mn" else out
-
-    return fn
 
 
 # --------------------------------------------------------------------- cost
@@ -203,20 +157,20 @@ def euclid_flops(N: int, M: int, D: int, vectorize: bool = True) -> float:
 
 
 # --------------------------------------------------------------- compilette
-def _variant(point: Point, dim: int, device: torch.device):
+def _variant(point: Point, device: torch.device):
     """The variant serving ``point``: the hand kernel on CUDA (its
-    instantiation resolved now, so a missing one raises here), the eager
-    mirror on the CPU."""
+    instantiation resolved now, so a missing one raises here), the plain
+    version on the CPU (``euclid_cuda`` takes it for CPU tensors)."""
+    pt = dict(point)
+    lib = None
     if device.type == "cuda":
         lib = build_kernels(device)
-        lib.resolve(point)
-        pt = dict(point)
+        lib.resolve(symbol(pt))
 
-        def fn(x, c):
-            return euclid_cuda(x, c, pt, lib=lib)
+    def fn(x, c):
+        return euclid_cuda(x, c, pt, lib=lib)
 
-        return fn
-    return generate_torch_variant(point, dim=dim)
+    return fn
 
 
 def make_euclid_compilette(
@@ -229,8 +183,8 @@ def make_euclid_compilette(
 
     On a CUDA ``device`` (the default) the space's capacity is the card's
     shared memory per block and every variant is the hand kernel; on the
-    CPU it keeps the reference's ``TPU_V5E.vmem_kb`` and generates eager
-    mirrors.
+    CPU it keeps the reference's ``TPU_V5E.vmem_kb`` and serves the plain
+    version.
     """
     dev = resolve_device(device)
     if vmem_kb is None:
@@ -238,7 +192,7 @@ def make_euclid_compilette(
     space = make_space(N, M, D, vmem_kb=vmem_kb)
 
     def generate(point: Point, **spec: Any):
-        return _variant(point, spec.get("dim", D), dev)
+        return _variant(point, dev)
 
     def cost_model(point: Point, spec: dict[str, Any], profile: DeviceProfile) -> float:
         full = {"N": N, "M": M, "D": D}
@@ -273,7 +227,7 @@ def reference_simd(dim: int):
 
 # ---------------------------------------------------------- kernel catalog
 def _catalog_generate(point: Point, spec: dict[str, Any]):
-    return _variant(point, spec["D"], resolve_device(spec.get("device")))
+    return _variant(point, resolve_device(spec.get("device")))
 
 
 def _extract_spec(x, c, **overrides: Any) -> dict[str, Any]:
@@ -318,7 +272,6 @@ __all__ = [
     "kernel_points",
     "make_space",
     "make_euclid_compilette",
-    "generate_torch_variant",
     "euclid_cost_model",
     "euclid_flops",
     "euclid_ref",

@@ -1,0 +1,344 @@
+"""Shared model layers: norms, RoPE, GQA attention, MLPs, embeddings.
+
+Mirrors ``repro/models/layers.py``: pure functions over param dicts
+(declared via ParamDef), interleaved-pair RoPE, for the families the
+port builds (its M-RoPE and encoder-decoder layers wait for those
+families). The reference's ``shard`` annotations drop out (there is no mesh), and so do its u16
+bit views around bf16 caches (an XLA:CPU workaround): the decode cache
+is updated in place, slot by slot, instead of rebuilt.
+
+**What runs where.** In the reference, the step-programs are jitted: the
+layers see tracers there, never route through a kernel-plane handle, and
+adopt the plane's best points at trace time. Here the model marks its
+step-programs (:func:`~repro_torch.runtime.kernel_plane.step_program`)
+and :func:`_plane_routes` answers ``None`` inside one, so a step never
+calls a ``ManagedTuner`` (and the serve loop credits its busy time once,
+as the reference does). Outside a step-program, with a plane active, an
+eager call routes through the plane as in the reference. Otherwise:
+
+  * on a CUDA tensor, ``rms_norm`` launches the rmsnorm hand kernel at
+    its ``DEFAULT_POINT`` (the reference's jnp body has no knob), and
+    causal attention without a window or an offset launches the flash
+    hand kernel with the plane's chunks, clamped to the sequence as
+    ``flash_attention_pallas`` clamps its blocks;
+  * windowed, non-causal or offset attention, decode attention, and
+    everything on the CPU, run the plain PyTorch versions;
+  * the projections and the MLP are ``torch.matmul`` in full fp32 (the
+    reference leaves these einsums to XLA, outside any Pallas kernel),
+    with TF32 off, PyTorch's default.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.attention.attention import flash_attention_cuda
+from repro_torch.kernels.attention.ops import decode_attention, flash_attention_torch
+from repro_torch.kernels.rmsnorm.ops import DEFAULT_POINT as RMSNORM_POINT
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
+from repro_torch.models.params import ParamDef
+from repro_torch.runtime.kernel_plane import active_plane, in_step_program
+
+
+# ------------------------------------------------------------ kernel plane
+def _plane_routes():
+    """The active kernel-tuning plane, when an eager call may route.
+
+    Inside a step-program the coordinator-managed handle must not run
+    (the reference's step-programs are traced, and the serve loop credits
+    their time itself); those calls adopt the plane's best-known points
+    (see :func:`plane_attn_chunks`) and keep the plain kernel body.
+    """
+    if in_step_program():
+        return None
+    return active_plane()
+
+
+def plane_attn_chunks(cfg: ModelConfig) -> tuple[int, int]:
+    """Attention chunk sizes: the plane's tuned blocks, else cfg defaults.
+
+    A step-program run while a plane is active inherits the attention
+    kernel's independently tuned ``block_q``/``block_kv`` instead of the
+    config's chunk sizes (warm-started registries make this bite from the
+    very first step of a restarted process).
+    """
+    plane = active_plane()
+    if plane is not None and plane.adopt_points:
+        best = plane.best_point("attention")
+        if best is not None:
+            return (int(best.get("block_q", cfg.attn_q_chunk)),
+                    int(best.get("block_kv", cfg.attn_k_chunk)))
+    return cfg.attn_q_chunk, cfg.attn_k_chunk
+
+
+def plane_decode_chunk(cfg: ModelConfig) -> int:
+    """Flash-decoding KV chunk: the plane's tuned ``k_chunk``, else cfg's.
+
+    Suppressed, like the attention chunks, when a program-level tuner
+    owns the knob ("both" mode).
+    """
+    plane = active_plane()
+    if plane is not None and plane.adopt_points:
+        best = plane.best_point("decode_attention")
+        if best is not None:
+            return int(best.get("k_chunk", cfg.decode_k_chunk))
+    return cfg.decode_k_chunk
+
+
+# ----------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    plane = _plane_routes()
+    shape = x.shape
+    if plane is not None and eps == 1e-6 and x.dim() >= 2:
+        # coordinator-managed handle: the kernel tuned as an independent
+        # unit (block_rows its own space, own strategy)
+        y = plane.call("rmsnorm", x.reshape(-1, shape[-1]), scale)
+        if y is not None:
+            return y.reshape(shape)
+    if x.is_cuda:
+        y = rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),
+                         scale.to(x.dtype).contiguous(), RMSNORM_POINT, eps=eps)
+        return y.reshape(shape)
+    return rmsnorm_ref(x, scale, eps)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+def norm(x: torch.Tensor, scale: torch.Tensor, kind: str) -> torch.Tensor:
+    return rms_norm(x, scale) if kind == "rmsnorm" else layer_norm(x, scale)
+
+
+# ------------------------------------------------------------------ rope
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    half = d_head // 2
+    return theta ** (-torch.arange(half, dtype=torch.float32, device=device) / half)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, T, H, Dh); positions: (B, T) int. Interleaved pairs."""
+    B, T, H, Dh = x.shape
+    freqs = rope_freqs(Dh, theta, x.device)                    # (Dh/2,)
+    ang = positions[..., None].to(torch.float32) * freqs       # (B, T, Dh/2)
+    cos = torch.cos(ang)[:, :, None, :]                        # (B, T, 1, Dh/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    xp = x.to(torch.float32).reshape(B, T, H, Dh // 2, 2)
+    x1, x2 = xp[..., 0], xp[..., 1]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(B, T, H, Dh).to(x.dtype)
+
+
+# ------------------------------------------------------------- attention
+def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
+    d, H, Hk, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    defs = {
+        "wq": ParamDef((d, H, Dh), ("embed", "heads", None),
+                       scale=1.0 / math.sqrt(d)),
+        "wk": ParamDef((d, Hk, Dh), ("embed", "kv", None),
+                       scale=1.0 / math.sqrt(d)),
+        "wv": ParamDef((d, Hk, Dh), ("embed", "kv", None),
+                       scale=1.0 / math.sqrt(d)),
+        "wo": ParamDef((H, Dh, d), ("heads", None, "embed"),
+                       scale=1.0 / math.sqrt(H * Dh)),
+    }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((H, Dh), ("heads", None), init="zeros")
+        defs["bk"] = ParamDef((Hk, Dh), ("kv", None), init="zeros")
+        defs["bv"] = ParamDef((Hk, Dh), ("kv", None), init="zeros")
+    return defs
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, T, d) @ w (d, *heads) -> (B, T, *heads), one matmul."""
+    out = torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1))
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def qkv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig):
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return q, k, v
+
+
+def attn_out(o: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    B, T, H, Dh = o.shape
+    w = p["wo"].to(o.dtype)
+    return torch.matmul(o.reshape(B, T, H * Dh), w.reshape(H * Dh, w.shape[-1]))
+
+
+def _rotate(q, k, positions, cfg: ModelConfig):
+    if positions is not None:
+        pos2d = positions if positions.dim() == 2 else positions[None]
+        q = apply_rope(q, pos2d, cfg.rope_theta)
+        k = apply_rope(k, pos2d, cfg.rope_theta)
+    return q, k
+
+
+def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int):
+    """The step-programs' attention (see the module docstring)."""
+    qc, kc = plane_attn_chunks(cfg)
+    if q.is_cuda and causal and q_offset == 0 and cfg.window is None:
+        point = {"block_q": min(qc, q.shape[1]), "block_kv": min(kc, k.shape[1])}
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), point)
+    return flash_attention_torch(
+        q, k, v, causal=causal, q_offset=q_offset, window=cfg.window,
+        q_chunk=qc, k_chunk=kc, scores_f32=cfg.attn_scores_f32)
+
+
+def self_attention(
+    x: torch.Tensor,
+    p: dict,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    causal: bool = True,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Full-sequence attention (train / prefill / encoder)."""
+    q, k, v = qkv_proj(x, p, cfg)
+    q, k = _rotate(q, k, positions, cfg)
+    plane = _plane_routes()
+    o = None
+    if (plane is not None and causal and q_offset == 0
+            and cfg.window is None):
+        # eager call with an active plane: the flash kernel runs as an
+        # independently tuned coordinator-managed unit
+        o = plane.call("attention", q.contiguous(), k.contiguous(), v.contiguous())
+    if o is None:
+        o = _attend(q, k, v, cfg, causal=causal, q_offset=q_offset)
+    return attn_out(o, p, cfg)
+
+
+def self_attention_with_cache(
+    x: torch.Tensor,
+    p: dict,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """Prefill: returns output and the (k, v) cache to keep."""
+    q, k, v = qkv_proj(x, p, cfg)
+    q, k = _rotate(q, k, positions, cfg)
+    o = _attend(q, k, v, cfg, causal=True, q_offset=0)
+    return attn_out(o, p, cfg), (k, v)
+
+
+def decode_self_attention(
+    x: torch.Tensor,                 # (B, 1, d)
+    p: dict,
+    cfg: ModelConfig,
+    cache_k: torch.Tensor,           # (B, S, Hk, Dh), updated in place
+    cache_v: torch.Tensor,
+    pos: int,                        # cache write slot
+):
+    """One-token decode against a KV cache.
+
+    The new token's k and v are written into the cache in place (the
+    reference returns an updated copy that XLA aliases with its input).
+    """
+    q, k, v = qkv_proj(x, p, cfg)
+    B = x.shape[0]
+    if cfg.use_rope:
+        positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    S = cache_k.shape[1]
+    if cfg.window is not None and cfg.window < S:
+        slot = pos % cfg.window
+        S_eff = cfg.window
+    else:
+        slot = pos
+        S_eff = S
+    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    length = min(pos + 1, S_eff)
+    plane = _plane_routes()
+    o = None
+    if plane is not None:
+        # eager call with an active plane: flash-decoding runs as an
+        # independently tuned unit, keyed per cache-length bucket
+        o = plane.call("decode_attention", q, cache_k, cache_v, length)
+    if o is None:
+        o = decode_attention(q, cache_k, cache_v, length=length,
+                             k_chunk=plane_decode_chunk(cfg))
+    return attn_out(o, p, cfg), (cache_k, cache_v)
+
+
+# ------------------------------------------------------------------- mlp
+def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
+    d = cfg.d_model
+    ff = d_ff or cfg.d_ff
+    s_in = 1.0 / math.sqrt(d)
+    s_out = 1.0 / math.sqrt(ff)
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": ParamDef((d, ff), ("embed", "ffn"), scale=s_in),
+            "w_up": ParamDef((d, ff), ("embed", "ffn"), scale=s_in),
+            "w_down": ParamDef((ff, d), ("ffn", "embed"), scale=s_out),
+        }
+    return {
+        "w_up": ParamDef((d, ff), ("embed", "ffn"), scale=s_in),
+        "w_down": ParamDef((ff, d), ("ffn", "embed"), scale=s_out),
+    }
+
+
+def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.act == "swiglu":
+        g = torch.matmul(x, p["w_gate"].to(x.dtype))
+        u = torch.matmul(x, p["w_up"].to(x.dtype))
+        h = torch.nn.functional.silu(g) * u
+    else:
+        h = torch.matmul(x, p["w_up"].to(x.dtype))
+        h = (torch.nn.functional.gelu(h, approximate="tanh") if cfg.act == "gelu"
+             else torch.square(torch.relu(h)))
+    return torch.matmul(h, p["w_down"].to(x.dtype))
+
+
+# ------------------------------------------------------------- embeddings
+def embedding_defs(cfg: ModelConfig) -> dict:
+    return {
+        "embed": ParamDef((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=0.02),
+        "unembed": ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"),
+                            scale=1.0 / math.sqrt(cfg.d_model)),
+    }
+
+
+def embed_tokens(tokens: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    return p["embed"].to(cfg.compute_dtype)[tokens]
+
+
+def logits_out(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    logits = torch.matmul(x, p["unembed"].to(x.dtype))
+    if cfg.logit_softcap:
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def cross_entropy(
+    logits: torch.Tensor,      # (B, T, V)
+    labels: torch.Tensor,      # (B, T) int
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,0 +1,60 @@
+"""Model dispatcher: config -> model instance; constituent-kernel specs.
+
+Mirrors ``repro/models/model.py``. The port builds the dense family; the
+other families (MoE, RWKV, hybrid, encoder-decoder, VLM) wait for
+ROADMAP Queue 1 item 5.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import TransformerLM
+
+
+def build_model(cfg: ModelConfig):
+    if cfg.family == "dense":
+        return TransformerLM(cfg)
+    if cfg.family in ("moe", "vlm", "rwkv", "hybrid", "encdec"):
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 5)")
+    raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+def model_kernel_specs(
+    cfg: ModelConfig, *, batch: int, seq: int, max_len: int | None = None,
+) -> list[tuple[str, dict]]:
+    """Constituent tunable kernels of a model's step-programs.
+
+    The hierarchical-registration shape list: for a (batch, seq) traffic
+    cell, the step-programs decompose into these catalog kernels, each
+    registered as an independent coordinator-managed compilette (its own
+    tuning space, strategy, registry key and cache lines). The paper's
+    unit of analysis — the individual short-running kernel — keyed by
+    the run-time constants the model bakes into it.
+
+    ``max_len`` is the (pre-bucketed) KV-cache extent of a decode path:
+    when given, the flash-decoding ``decode_attention`` kernel registers
+    keyed per cache-length bucket (training loops pass nothing — they
+    have no decode step).
+    """
+    dt = str(cfg.compute_dtype).removeprefix("torch.")
+    specs: list[tuple[str, dict]] = [
+        # pre-attention / pre-MLP norms run over the flattened tokens
+        ("rmsnorm", {"N": batch * seq, "d": cfg.d_model, "dtype": dt}),
+        # MLP up-projection: the model's hot matmul shape
+        ("matmul", {"M": batch * seq, "N": cfg.d_ff, "K": cfg.d_model,
+                    "dtype": dt}),
+    ]
+    if cfg.n_heads and cfg.d_head:
+        specs.append(
+            ("attention", {"B": batch, "Tq": seq, "Tkv": seq,
+                           "H": cfg.n_heads, "Hk": cfg.n_kv_heads,
+                           "Dh": cfg.d_head, "causal": True, "dtype": dt}))
+        if max_len:
+            # decode path: the KV-chunk scan over the allocated cache
+            specs.append(
+                ("decode_attention", {"B": batch, "S": int(max_len),
+                                      "H": cfg.n_heads,
+                                      "Hk": cfg.n_kv_heads,
+                                      "Dh": cfg.d_head, "dtype": dt}))
+    return specs

@@ -1,0 +1,181 @@
+"""Decoder-only transformer (dense backbone).
+
+Mirrors ``repro/models/transformer.py``. The model is an ``nn.Module``
+whose layers sit in an ``nn.ModuleList``; the modules hold no weights of
+their own: every step reads the reference's param tree (stacked layers,
+leading L axis), so one tree — made here by ``init_tree`` or carried over
+from JAX — drives both packages. A Python loop over the layers takes the
+place of the reference's ``lax.scan``. The MoE family waits for the port
+of ``models/moe.py``.
+
+``loss``, ``prefill`` and ``decode_step`` are step-programs: they run
+inside :func:`~repro_torch.runtime.kernel_plane.step_program`, so no
+layer call inside them routes through a kernel-plane handle (see
+``repro_torch/models/layers.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamDef, cast_params
+from repro_torch.runtime.kernel_plane import step_program
+
+
+def stack_defs(defs: dict, n: int) -> dict:
+    """Prepend a stacked 'layers' axis to every ParamDef in the tree."""
+    out = {}
+    for name, node in defs.items():
+        if isinstance(node, ParamDef):
+            out[name] = ParamDef(
+                (n,) + node.shape, ("layers",) + node.axes, node.init, node.scale
+            )
+        else:
+            out[name] = stack_defs(node, n)
+    return out
+
+
+def layer_defs(cfg: ModelConfig) -> dict:
+    defs = {
+        "ln1": ParamDef((cfg.d_model,), (None,), init="ones"),
+        "attn": L.attention_defs(cfg),
+    }
+    if not cfg.parallel_block:
+        defs["ln2"] = ParamDef((cfg.d_model,), (None,), init="ones")
+    defs["ffn"] = L.mlp_defs(cfg)
+    return defs
+
+
+def transformer_defs(cfg: ModelConfig) -> dict:
+    return {
+        "tok": L.embedding_defs(cfg),
+        "layers": stack_defs(layer_defs(cfg), cfg.n_layers),
+        "ln_f": ParamDef((cfg.d_model,), (None,), init="ones"),
+    }
+
+
+def layer_params(stacked: dict, i: int) -> dict:
+    """Layer ``i``'s params: views into the stacked tree."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
+
+
+class TransformerBlock(nn.Module):
+    """One pre-norm block: attention, then the MLP (or both in parallel)."""
+
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__()
+        self.cfg = cfg
+
+    def _ffn(self, h: torch.Tensor, lp: dict, attn: torch.Tensor,
+             hn: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.parallel_block:
+            return h + attn + L.mlp(hn, lp["ffn"], cfg)
+        h = h + attn
+        return h + L.mlp(L.norm(h, lp["ln2"], cfg.norm), lp["ffn"], cfg)
+
+    def forward(self, h: torch.Tensor, lp: dict, positions: torch.Tensor) -> torch.Tensor:
+        hn = L.norm(h, lp["ln1"], self.cfg.norm)
+        attn = L.self_attention(hn, lp["attn"], self.cfg, positions=positions)
+        return self._ffn(h, lp, attn, hn)
+
+    def prefill(self, h: torch.Tensor, lp: dict, positions: torch.Tensor):
+        hn = L.norm(h, lp["ln1"], self.cfg.norm)
+        attn, kv = L.self_attention_with_cache(
+            hn, lp["attn"], self.cfg, positions=positions)
+        return self._ffn(h, lp, attn, hn), kv
+
+    def decode(self, h: torch.Tensor, lp: dict, cache_k: torch.Tensor,
+               cache_v: torch.Tensor, pos: int):
+        hn = L.norm(h, lp["ln1"], self.cfg.norm)
+        attn, _ = L.decode_self_attention(
+            hn, lp["attn"], self.cfg, cache_k, cache_v, pos)
+        return self._ffn(h, lp, attn, hn)
+
+
+class TransformerLM(nn.Module):
+    """Dense decoder LM with the standard step functions."""
+
+    def __init__(self, cfg: ModelConfig) -> None:
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r}: the port's TransformerLM runs the "
+                "dense family; models/moe.py waits for ROADMAP Queue 1 item 5")
+        self.cfg = cfg
+        self.layers = nn.ModuleList(TransformerBlock(cfg) for _ in range(cfg.n_layers))
+
+    # --- params ---
+    def param_defs(self) -> dict:
+        return transformer_defs(self.cfg)
+
+    def _positions(self, batch: dict, B: int, T: int, device) -> torch.Tensor:
+        pos = batch.get("positions")
+        if pos is None:
+            pos = torch.arange(T, device=device)[None].expand(B, T)
+        return pos
+
+    # --- steps ---
+    def loss(self, params: dict, batch: dict) -> torch.Tensor:
+        cfg = self.cfg
+        with step_program():
+            params = cast_params(params, cfg.compute_dtype)
+            tokens = batch["tokens"]                      # (B, T)
+            B, T = tokens.shape
+            h = L.embed_tokens(tokens, params["tok"], cfg)
+            positions = self._positions(batch, B, T, tokens.device)
+            for i, block in enumerate(self.layers):
+                h = block(h, layer_params(params["layers"], i), positions)
+            h = L.norm(h, params["ln_f"], cfg.norm)
+            logits = L.logits_out(h, params["tok"], cfg)
+            return L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+
+    def prefill(self, params: dict, batch: dict):
+        """Logits of the last position, and the stacked (L, B, T, Hk, Dh)
+        KV caches."""
+        cfg = self.cfg
+        with step_program():
+            params = cast_params(params, cfg.compute_dtype)
+            tokens = batch["tokens"]
+            B, T = tokens.shape
+            h = L.embed_tokens(tokens, params["tok"], cfg)
+            positions = self._positions(batch, B, T, tokens.device)
+            ks, vs = [], []
+            for i, block in enumerate(self.layers):
+                h, (k, v) = block.prefill(h, layer_params(params["layers"], i),
+                                          positions)
+                ks.append(k)
+                vs.append(v)
+            h = L.norm(h, params["ln_f"], cfg.norm)
+            logits = L.logits_out(h[:, -1:], params["tok"], cfg)
+            return logits, (torch.stack(ks), torch.stack(vs))
+
+    def decode_step(self, params: dict, cache: tuple, tokens: torch.Tensor,
+                    pos: int):
+        """One-token decode. tokens: (B, 1); cache: (k, v) with a leading
+        L axis, updated in place at slot ``pos``."""
+        cfg = self.cfg
+        with step_program():
+            params = cast_params(params, cfg.compute_dtype)
+            ks, vs = cache
+            h = L.embed_tokens(tokens, params["tok"], cfg)    # (B, 1, d)
+            for i, block in enumerate(self.layers):
+                h = block.decode(h, layer_params(params["layers"], i), ks[i], vs[i],
+                                 int(pos))
+            h = L.norm(h, params["ln_f"], cfg.norm)
+            return L.logits_out(h, params["tok"], cfg), (ks, vs)
+
+    def init_cache_shape(self, batch: int, max_len: int) -> tuple[int, ...]:
+        cfg = self.cfg
+        S = min(max_len, cfg.window) if cfg.window else max_len
+        return (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.d_head)
+
+    def init_cache(self, batch: int, max_len: int, *,
+                   device: "torch.device | str" = "cpu"):
+        shape = self.init_cache_shape(batch, max_len)
+        return tuple(torch.zeros(shape, dtype=self.cfg.compute_dtype, device=device)
+                     for _ in range(2))

@@ -201,7 +201,7 @@ def test_compile_farm_manual_batches_like_reference():
 def test_time_once_on_cpu_uses_host_clock():
     x = torch.ones(8)
     assert tevaluator.time_once(lambda t: t * 2, (x,)) >= 0.0
-    tevaluator._block(x)          # a CPU tensor is complete: no sync
+    tevaluator.block_until_ready(x)          # a CPU tensor is complete: no sync
 
 
 def test_device_memory_probe_without_cuda(monkeypatch):

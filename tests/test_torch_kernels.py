@@ -25,6 +25,7 @@ from repro.kernels.lintra import ops as jlintra
 from repro.kernels.lintra.lintra import lintra_pallas
 
 from repro_torch.interop import fold_lintra, to_torch
+from repro_torch.kernels._build import instantiation_units
 from repro_torch.kernels.catalog import get_catalog
 from repro_torch.kernels.euclid import euclid as teuclid_kernel
 from repro_torch.kernels.euclid import ops as teuclid
@@ -66,21 +67,26 @@ def lintra_inputs(h, w, bands, seed=0):
 
 
 # ------------------------------------------------------------------ euclid
+@pytest.mark.parametrize("reference", ["pallas", "jnp_variant"])
 @pytest.mark.parametrize("n,m,d,pi", [
     (n, m, d, pi) for n, m, d in [(128, 32, 32), (250, 90, 70), (64, 64, 128)]
     for pi, pt in enumerate(EUCLID_POINTS) if pt["block_d"] <= d])
-def test_euclid_plain_and_variant_match_pallas_and_jnp(n, m, d, pi):
+def test_euclid_plain_and_variant_match_pallas_and_jnp(n, m, d, pi, reference):
+    """The port's one eager euclid (``euclid_plain``, which the wrapper's
+    and the compilette's CPU branches both call) against the Pallas
+    kernel in interpret mode and against the reference's jnp variant."""
     pt = EUCLID_POINTS[pi]
     xn, cn = euclid_inputs(n, m, d)
     x, c = to_torch((xn, cn), "cpu")
-    pallas = np.asarray(euclid_pallas(jnp.asarray(xn), jnp.asarray(cn), pt,
-                                      interpret=True))
-    jvariant = np.asarray(jeuclid.generate_jnp_variant(pt, dim=d)(xn, cn))
+    if reference == "pallas":
+        want = np.asarray(euclid_pallas(jnp.asarray(xn), jnp.asarray(cn), pt,
+                                        interpret=True))
+    else:
+        want = np.asarray(jeuclid.generate_jnp_variant(pt, dim=d)(xn, cn))
     plain = teuclid_kernel.euclid_plain(x, c, pt).numpy()
-    tvariant = teuclid.generate_torch_variant(pt, dim=d)(x, c).numpy()
-    np.testing.assert_allclose(plain, pallas, **EUCLID_TOL)
-    np.testing.assert_allclose(tvariant, jvariant, **EUCLID_TOL)
-    np.testing.assert_allclose(tvariant, pallas, **EUCLID_TOL)
+    variant = teuclid._variant(pt, torch.device("cpu"))(x, c).numpy()
+    np.testing.assert_array_equal(variant, plain)
+    np.testing.assert_allclose(plain, want, **EUCLID_TOL)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -142,9 +148,10 @@ def test_euclid_instantiations_cover_the_card_space():
         space = teuclid.make_space(*shape, vmem_kb=227)
         for p in space.iter_valid():
             assert tuple(p[k] for k in teuclid_kernel.PHASE1) in points
-    units = teuclid_kernel._units(points, 8)
+    lines = list(teuclid_kernel.instantiations(points).values())
+    units = instantiation_units("euclid", "euclid.cuh", lines, 8)
     text = "".join(units.values())
-    assert "euclid.cu" in units and len(units) == 9
+    assert "euclid_errors.cu" in units and len(units) == 9
     assert text.count("EUCLID_INSTANTIATE(") == len(points)
     for p in points:
         assert f"EUCLID_INSTANTIATE({', '.join(map(str, p))})" in text
@@ -163,7 +170,8 @@ def test_euclid_smem_fits_what_the_validator_counts():
 
 def test_euclid_catalog_spec_and_space():
     cat = get_catalog()
-    assert cat.names() == ("euclid", "lintra")
+    from repro.kernels.catalog import get_catalog as jax_catalog
+    assert cat.names() == jax_catalog().names()
     xn, cn = euclid_inputs(250, 90, 70)
     x, c = to_torch((xn, cn), "cpu")
     spec = cat.spec_of("euclid", x, c)
@@ -271,3 +279,84 @@ def test_lintra_module_imports_triton_only_inside_functions():
             names = [a.name for a in node.names]
             mod = getattr(node, "module", None) or ""
             assert "triton" not in mod and not any("triton" in n for n in names)
+
+
+# ============================================== LM kernels (serving slice)
+# Tolerances: matmul rtol 1e-4, atol 1e-4 (chunked fp32 accumulation over
+# K <= 600 against another chunking); rmsnorm rtol 1e-5, atol 1e-5 (fp32
+# statistics of one row); the oracles rtol 1e-5, atol 1e-5 (the same
+# formula in both frameworks). The attention kernels, spaces and catalog
+# entries of the serving slice are in test_torch_lm_kernels.py.
+from repro.kernels.matmul import ops as jmatmul
+from repro.kernels.matmul.matmul import matmul_pallas
+from repro.kernels.rmsnorm import ops as jrmsnorm
+from repro.kernels.rmsnorm.rmsnorm import rmsnorm_pallas
+
+from repro_torch.kernels.matmul import matmul as tmatmul_kernel
+from repro_torch.kernels.matmul import ops as tmatmul
+from repro_torch.kernels.rmsnorm import ops as trmsnorm
+from repro_torch.kernels.rmsnorm import rmsnorm as trmsnorm_kernel
+
+MATMUL_TOL = {"rtol": 1e-4, "atol": 1e-4}
+RMSNORM_TOL = {"rtol": 1e-5, "atol": 1e-5}
+ORACLE_TOL = {"rtol": 1e-5, "atol": 1e-5}
+
+
+def normal(shape, seed, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def random_point(space, seed):
+    pts = list(space.iter_valid())
+    return pts[np.random.default_rng(seed).integers(len(pts))]
+
+
+# ------------------------------------------------------------------ matmul
+@pytest.mark.parametrize("seed", range(6))
+def test_matmul_plain_matches_pallas_at_random_points(seed):
+    """Ragged M, N and K (none a multiple of its block), both orders and
+    both scratch modes over the seeds."""
+    M, N, K = 200, 300, 600
+    space = tmatmul.make_space(M, N, K)
+    pt = dict(random_point(space, seed),
+              order=("mn", "nm")[seed % 2], scratch=(seed // 2) % 2)
+    an, bn = normal((M, K), seed), normal((K, N), seed + 100)
+    want = np.asarray(matmul_pallas(jnp.asarray(an), jnp.asarray(bn), pt,
+                                    interpret=True))
+    got = tmatmul_kernel.matmul_plain(torch.from_numpy(an), torch.from_numpy(bn), pt)
+    np.testing.assert_allclose(got.numpy(), want, **MATMUL_TOL)
+
+
+def test_matmul_oracle_and_wrapper_on_cpu():
+    an, bn = normal((70, 90), 1), normal((90, 50), 2)
+    a, b = torch.from_numpy(an), torch.from_numpy(bn)
+    np.testing.assert_allclose(tmatmul.matmul_ref(a, b).numpy(),
+                               np.asarray(jmatmul.matmul_ref(an, bn)), **ORACLE_TOL)
+    pt = dict(tmatmul.DEFAULT_POINT, block_k=32, unroll=2)
+    before = tmatmul_kernel.matmul_cuda.launches
+    assert torch.equal(tmatmul_kernel.matmul_cuda(a, b, pt),
+                       tmatmul_kernel.matmul_plain(a, b, pt))
+    assert tmatmul_kernel.matmul_cuda.launches == before
+
+
+# ----------------------------------------------------------------- rmsnorm
+@pytest.mark.parametrize("n,d,rows", [(64, 128, 8), (100, 256, 32), (4, 64, 128),
+                                      (300, 96, 512)])
+def test_rmsnorm_plain_matches_pallas(n, d, rows):
+    xn, wn = normal((n, d), n), normal((d,), d)
+    pt = {"block_rows": rows, "lookahead": 1}
+    want = np.asarray(rmsnorm_pallas(jnp.asarray(xn), jnp.asarray(wn), pt,
+                                     interpret=True))
+    got = trmsnorm_kernel.rmsnorm_plain(torch.from_numpy(xn), torch.from_numpy(wn), pt)
+    np.testing.assert_allclose(got.numpy(), want, **RMSNORM_TOL)
+
+
+def test_rmsnorm_oracle_and_wrapper_on_cpu():
+    xn, wn = normal((33, 48), 3), normal((48,), 4)
+    x, w = torch.from_numpy(xn), torch.from_numpy(wn)
+    np.testing.assert_allclose(trmsnorm.rmsnorm_ref(x, w).numpy(),
+                               np.asarray(jrmsnorm.rmsnorm_ref(xn, wn)), **ORACLE_TOL)
+    before = trmsnorm_kernel.rmsnorm_cuda.launches
+    out = trmsnorm_kernel.rmsnorm_cuda(x, w, trmsnorm.DEFAULT_POINT)
+    assert out.dtype == x.dtype and torch.equal(out, trmsnorm.rmsnorm_ref(x, w))
+    assert trmsnorm_kernel.rmsnorm_cuda.launches == before
