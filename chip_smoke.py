@@ -52,8 +52,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 #: NVIDIA H100 SXM data-sheet peaks (dense): fp32 outside the tensor
-#: cores, and device-memory bandwidth
+#: cores, TF32 on the tensor cores, and device-memory bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_S = 3.35e12
 
 EUCLID_SRC = "src/repro_torch/kernels/euclid/csrc/euclid.cuh"
@@ -136,9 +137,11 @@ def ptxas_summary(log: Path) -> dict:
     text = log.read_text() if log.exists() else ""
     regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
     spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", text)]
+    frames = [int(f) for f in re.findall(r"(\d+) bytes stack frame", text)]
     return {"kernels": len(regs), "max_registers": max(regs, default=0),
             "spilling_kernels": sum(1 for s in spills if s > 0),
-            "max_spill_store_bytes": max(spills, default=0)}
+            "max_spill_store_bytes": max(spills, default=0),
+            "max_stack_frame_bytes": max(frames, default=0)}
 
 
 def tol_used(got, want, tol: dict) -> float:
@@ -267,9 +270,12 @@ def check_lintra(dev, gen) -> tuple[float, int, list, list]:
     return worst, n_checks, compile_s, first_launch_s
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least ms the card could take, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_S
+def bound(flops: float, nbytes: float, *, tf32x3: bool = False) -> tuple[float, str]:
+    """The least ms the card could take, and what bounds it: the fp32
+    operations on the CUDA cores, or (``tf32x3``) the same operations as
+    three TF32 products on the tensor cores, against the bytes."""
+    rate = PEAK_TF32_FLOPS / 3 if tf32x3 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
@@ -289,8 +295,13 @@ def build_all(dev) -> tuple[dict, dict]:
         libs = {n: f.result() for n, f in futures.items()}
     wall = time.perf_counter() - t0
     report = {"wall_s": wall}
+    logs = ROOT / "chiprun_out" / "ptxas"
+    logs.mkdir(parents=True, exist_ok=True)
     for name, lib in libs.items():
         n = len(lib.symbols)
+        log = lib.built.path.with_suffix(".ptxas.log")
+        if log.exists():
+            (logs / f"{name}.log").write_text(log.read_text())
         report[name] = {"seconds": lib.build_s, "built": lib.built.built,
                         "instantiations": n,
                         **ptxas_summary(lib.built.path.with_suffix(".ptxas.log"))}
@@ -545,11 +556,11 @@ def check_attention(lib, dev, gen) -> dict:
                       lambda: flash_attention_cuda(q, k, v, point, lib=lib, **kw),
                       lambda: flash_attention_plain(q, k, v, point, **kw)))
 
-    for bq in BLOCK_Q:
-        for bkv in BLOCK_KV:
-            point = {"block_q": bq, "block_kv": bkv}
-            case("ragged", (2, 700, 700, 8, 2), point)
-            case("offset", (1, 300, 1000, 8, 2), point, q_offset=700)
+    for i, (bq, bkv) in enumerate((bq, bkv) for bq in BLOCK_Q for bkv in BLOCK_KV):
+        point = {"block_q": bq, "block_kv": bkv, "lookahead": i % 3}
+        case("ragged", (2, 700, 700, 8, 2), point)
+        case("offset", (1, 300, 1000, 8, 2), dict(point, lookahead=(i + 1) % 3),
+             q_offset=700)
     case("non-causal", (2, 200, 333, 8, 2), {"block_q": 128, "block_kv": 256},
          causal=False)
     serving = (4, 512, 512, 32, 32)
@@ -665,8 +676,9 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
         "plain_ms": time_ms(matmul_plain, a, b, mm_best, reps=5, warmup=1),
         "library_ms": time_ms(torch.matmul, a, b, reps=5, warmup=1),
         "point": mm_best, "shape": [M, N, K]}
-    out["matmul"]["bound_ms"], out["matmul"]["bound_by"] = bound(
-        2.0 * M * N * K, 4.0 * (M * K + K * N + M * N))
+    mm_work = (2.0 * M * N * K, 4.0 * (M * K + K * N + M * N))
+    out["matmul"]["bound_ms"], out["matmul"]["bound_by"] = bound(*mm_work)
+    out["matmul"]["bound_3xtf32_ms"] = bound(*mm_work, tf32x3=True)[0]
     del a, b
 
     B, T, H, Dh = 4, 512, 32, 128
@@ -685,8 +697,9 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True)),
         "point": at_best, "untuned_point": step_point, "shape": [B, T, H, Dh]}
-    out["attention"]["bound_ms"], out["attention"]["bound_by"] = bound(
-        4.0 * B * H * T * T * Dh * 0.5, 4.0 * 4 * B * T * H * Dh)
+    at_work = (4.0 * B * H * T * T * Dh * 0.5, 4.0 * 4 * B * T * H * Dh)
+    out["attention"]["bound_ms"], out["attention"]["bound_by"] = bound(*at_work)
+    out["attention"]["bound_3xtf32_ms"] = bound(*at_work, tf32x3=True)[0]
 
     x = torch.randn(M, K, generator=gen, device=dev)
     w = torch.randn(K, generator=gen, device=dev)
@@ -700,12 +713,16 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
     out["rmsnorm"]["bound_ms"], out["rmsnorm"]["bound_by"] = bound(
         4.0 * M * K, 4.0 * (2 * M * K + K))
     for name, t in out.items():
-        print(f"{name} at {t['shape']}: {t['ms']:.4f} ms (bound {t['bound_ms']:.4f} "
-              f"ms, {t['bound_by']}); plain {t['plain_ms']:.4f} ms; library "
-              f"{t['library_ms']:.4f} ms; "
+        bounds = f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, fp32 CUDA cores; "
+        bounds += f"{t['bound_ms'] / t['ms']:.3f} of it reached"
+        if "bound_3xtf32_ms" in t:
+            bounds += (f"; 3xTF32 tensor-core bound {t['bound_3xtf32_ms']:.4f} ms, "
+                       f"{t['bound_3xtf32_ms'] / t['ms']:.3f} of it reached")
+        print(f"{name} at {t['shape']}: {t['ms']:.4f} ms ({bounds}); plain "
+              f"{t['plain_ms']:.4f} ms; library {t['library_ms']:.4f} ms; "
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()
                           if k.endswith("_ms") and k not in
-                          ("bound_ms", "plain_ms", "library_ms")))
+                          ("bound_ms", "bound_3xtf32_ms", "plain_ms", "library_ms")))
     return out
 
 

@@ -36,6 +36,9 @@ from typing import Mapping, Sequence
 #: ``<checkout>/build/repro_torch``: the package lives at ``src/repro_torch``
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
+#: headers every family may include (``sm90.cuh``: the Hopper primitives)
+SHARED_CSRC = Path(__file__).resolve().with_name("_csrc")
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -220,7 +223,10 @@ def load_family(family: str, csrc: Path, header: str,
 
     ``instantiations`` maps each exported launcher's symbol to the macro
     line of ``header`` that defines it; the lines are dealt round-robin
-    over ``n_units`` translation units, compiled in parallel.
+    over ``n_units`` translation units, compiled in parallel. The units
+    see ``csrc`` and the shared :data:`SHARED_CSRC` as include
+    directories, and the library's hash covers the headers of both, so
+    an edit of a shared header rebuilds every family.
     """
     key = (family, tuple(sorted(instantiations.items())))
     with _family_lock(f"load:{family}"):
@@ -230,7 +236,7 @@ def load_family(family: str, csrc: Path, header: str,
             return found
         lines = [line for _sym, line in sorted(instantiations.items())]
         units = instantiation_units(family, header, lines, n_units)
-        built = build_library(family, units, include_dirs=[csrc])
+        built = build_library(family, units, include_dirs=[csrc, SHARED_CSRC])
         lib = KernelLibrary(built, family, sorted(instantiations), argtypes)
         with _FAMILIES_MU:
             _FAMILIES[key] = lib

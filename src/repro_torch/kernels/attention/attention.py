@@ -7,13 +7,16 @@ with the same tuning point:
   block_q   — query rows per block (coldUF analogue)
   block_kv  — key/value rows per kv-loop step (vectLen analogue)
   sched     — inert (a parallel/arbitrary hint on the TPU's kv axis)
-  lookahead — inert
+  lookahead — 32-key slices of K and V in flight ahead of the one
+              computed (a ring of lookahead + 1 shared-memory stages)
 
 Layout: q (B, Tq, H, Dh), k/v (B, Tkv, Hk, Dh) with H = G·Hk, read in
 place (no transposed copies); the kv head of q head h is h // G.
 
 The kernel is CUDA C++ (``csrc/attention.cuh``; its header comment is
-the design note). ``block_q`` and ``block_kv`` are template parameters
+the design note): 3xTF32 products on the tensor cores (``mma.sync``,
+fp32 accuracy), K and V staged by ``cp.async``, a per-warp causal skip.
+``block_q`` and ``block_kv`` are template parameters
 at Dh = 128, one instantiation per combination (12), all built once
 into one shared library. A block clamped to the sequence, as
 ``flash_attention_pallas`` clamps ``min(block, T)``, is served by the
@@ -48,13 +51,25 @@ BLOCK_KV = (128, 256, 512, 1024)
 #: the head dim the kernel is written for
 HEAD_DIM = 128
 
-#: shared memory of one block (csrc/attention.cuh ``kSmemBytes``): the q
-#: pass and a K slice d-major (128 x 68 floats each), a V slice
-#: (64 x 132), the scores (64 x 68) and three row vectors of 64
-SMEM_BYTES = 4 * (2 * 128 * 68 + 64 * 132 + 64 * 68 + 3 * 64)
+#: shared memory of one ring stage (csrc/attention.cuh ``kStageBytes``):
+#: 32 keys of K and of V as copied
+STAGE_BYTES = 4 * 2 * 32 * 128
+#: the split slice (``kSplitBytes``): 32 keys of K and V as (big, small)
+#: TF32 pairs, rows padded to 132 pairs
+SPLIT_BYTES = 8 * 2 * 32 * 132
+
+
+def smem_bytes(point: Point) -> int:
+    """Shared memory of one block at ``point``: ``lookahead + 1`` stages
+    and the split slice."""
+    return (int(point.get("lookahead", 1)) + 1) * STAGE_BYTES + SPLIT_BYTES
+
+
+#: the largest footprint (three stages and the split slice, 162 kB)
+SMEM_BYTES = smem_bytes({"lookahead": 2})
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def _block(value: int, extent: int, options: tuple[int, ...]) -> int:
@@ -140,6 +155,9 @@ def flash_attention_cuda(
             or B * H * Tq >= 2**31 or q_offset < 0:
         raise ValueError(
             f"unsupported call B={B} Tq={Tq} Tkv={Tkv} H={H} q_offset={q_offset}")
+    lookahead = int(point.get("lookahead", 1))
+    if lookahead not in (0, 1, 2):
+        raise ValueError(f"lookahead {lookahead}: the kernel takes 0, 1 or 2")
     if lib is None:
         lib = build_kernels(q.device)
     scale = float(scale if scale is not None else Dh ** -0.5)
@@ -147,7 +165,7 @@ def flash_attention_cuda(
     stream = torch.cuda.current_stream(q.device).cuda_stream
     lib.launch(symbol(point, Tq, Tkv), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                out.data_ptr(), B, Tq, Tkv, H, Hk, int(bool(causal)), int(q_offset),
-               scale, stream)
+               scale, lookahead, stream)
     flash_attention_cuda.launches += 1
     return out
 
@@ -169,6 +187,7 @@ def flash_attention_plain(
         q_chunk=int(point["block_q"]), k_chunk=int(point["block_kv"]))
 
 
-__all__ = ["BLOCK_KV", "BLOCK_Q", "HEAD_DIM", "SMEM_BYTES", "build_kernels",
+__all__ = ["BLOCK_KV", "BLOCK_Q", "HEAD_DIM", "SMEM_BYTES", "SPLIT_BYTES", "STAGE_BYTES",
+           "build_kernels",
            "flash_attention_cuda", "flash_attention_plain", "instantiations",
-           "symbol"]
+           "smem_bytes", "symbol"]

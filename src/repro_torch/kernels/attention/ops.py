@@ -15,11 +15,12 @@ CUDA device and its plain version on the CPU.
 **Capacity rule.** At the reference's capacity (``vmem_kb`` of the TPU
 profile) the validator is the TPU kernel's VMEM footprint: its q, k, v
 and score blocks and the accumulators. On a CUDA device
-(``hopper=True``) it checks what the Hopper kernel holds on chip: the
-64-row q pass, one 64-row K and V slice and the 64x64 scores in shared
-memory (:data:`~repro_torch.kernels.attention.attention.SMEM_BYTES`,
-119 kB) whatever the blocks, at the one head dim the kernel is written
-for (128).
+(``hopper=True``) it checks what the Hopper kernel holds in shared
+memory: its ring of ``lookahead + 1`` stages of 32 keys of K and V and
+the split slice
+(:func:`~repro_torch.kernels.attention.attention.smem_bytes`, 98–162 kB)
+whatever the blocks, at the one head dim the kernel is written for
+(128).
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from repro_torch.core.profiles import TPU_V5E, DeviceProfile
 from repro_torch.core.tuning_space import Param, Point, TuningSpace
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.attention.attention import (
-    HEAD_DIM, SMEM_BYTES, build_kernels, flash_attention_cuda,
-    flash_attention_plain, symbol)
+    HEAD_DIM, build_kernels, flash_attention_cuda, flash_attention_plain,
+    smem_bytes, symbol)
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.catalog import (
     KernelDef, example_fill, spec_capacity_kb, spec_on_cuda)
@@ -195,7 +196,7 @@ def make_space(
 
     def validator(p: Point) -> bool:
         if hopper:
-            return Dh == HEAD_DIM and SMEM_BYTES <= vmem_kb * 1024
+            return Dh == HEAD_DIM and smem_bytes(p) <= vmem_kb * 1024
         bq, bkv = min(p["block_q"], Tq), min(p["block_kv"], Tkv)
         words = bq * Dh * 2 + 2 * bkv * Dh + bq * bkv + 2 * bq
         return words * 4 <= vmem_kb * 1024

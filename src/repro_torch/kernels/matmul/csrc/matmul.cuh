@@ -1,4 +1,4 @@
-// Tiled fp32 matrix product on Hopper.
+// Tiled fp32 matrix product on Hopper, on the tensor cores in 3xTF32.
 //
 //   C[M, N] = A[M, K] @ B[K, N]        A, B, C: fp32, row-major
 //
@@ -9,135 +9,122 @@
 //   * one block per BM x BN output tile; `order` maps block ids to tiles
 //     (0: m-major "mn", 1: n-major "nm");
 //   * the TPU's sequential k grid axis becomes a loop inside the block over
-//     ceil(K / BK) chunks; the final chunk is masked with zeros (the
-//     Pallas `k_rem`), as are the ragged M and N edges;
-//   * UNROLL splits each chunk into UNROLL sub-chunks with independent
-//     partial accumulators, summed in order into the chunk's total, which
-//     is added to the accumulator;
+//     ceil(K / BK) chunks; the final chunk reads zeros past K (the Pallas
+//     `k_rem`), as the ragged M and N edges do;
+//   * UNROLL splits each chunk into UNROLL sub-chunks whose partials are
+//     computed one after the other and summed in order into the chunk's
+//     total, which is added to the accumulator (UNROLL = 1: the partial
+//     is the total);
 //   * scratch=1 accumulates in registers and stores once (the VMEM
 //     scratch accumulator); scratch=0 read-modify-writes the output tile
 //     after every chunk, as `_mm_kernel_noscratch` accumulates in `o_ref`;
-//   * `lookahead` is inert: the chunk loop does not prefetch.
-//   * Products are fp32 FMAs on the CUDA cores, never TF32 (which keeps
-//     about three digits: chip_smoke.py holds every instantiation to a
-//     limit a TF32 product fails).
+//   * `lookahead` is the depth of the copy pipeline (below).
 //
-// What bounds it on an H100: 2*M*N*K fp32 operations against
+// What bounds it on an H100: 2*M*N*K operations against
 // 4*(M*K + K*N + M*N) bytes, so at the MLP up-projection of deepseek-7b
-// (2048 x 11008 x 4096) it is compute-bound on the CUDA cores
-// (67 TFLOP/s fp32; 2.76 ms). The design keeps the inner loop at two
-// 16-byte shared-memory loads per 16 FMAs: 256 threads in a 16x16 layout
-// each own a 4x4 register micro-tile of a 64x64 pass, and A is staged
-// k-major so a thread's four rows are contiguous. A BM x BN tile larger
-// than 64x64 is walked in passes and each BK chunk in 32-deep slices, so
-// registers (16 accumulators and UNROLL x 16 partials a thread) and shared
-// memory (one 64x32 slice of A and one 32x64 slice of B, 17 kB) stay
-// bounded whatever the tile: the TPU kernel's whole (BM, BK) and (BK, BN)
-// blocks, up to 2 MB, would not fit a Hopper block. Later work: wgmma or
-// mma.sync products, TMA or cp.async double buffering (`lookahead` as a
-// real pipeline depth), a gated TF32 knob.
+// (2048 x 11008 x 4096, 184.7 GFLOP) it is bound by operations. On the
+// CUDA cores (67 TFLOP/s fp32) no kernel gets below 2.76 ms, and cuBLAS's
+// fp32 product is at 3.71. A TF32 product keeps about three digits, which
+// chip_smoke.py's limit refuses; so the products run in 3xTF32
+// (sm90::mma_3xtf32): each operand x is split into big = tf32(x) and
+// small = tf32(x - big), and small*big + big*small + big*big is
+// accumulated in fp32 by mma.sync m16n8k8. That is three TF32 products at
+// 495 TFLOP/s, 1.12 ms of tensor-core time for the up-projection.
+//
+// The design:
+//   * 256 threads, 8 warps in a 2 (m) x 4 (n) layout. The block holds a
+//     pass tile of PM x 128 outputs in registers (PM = min(BM, 128) at
+//     UNROLL = 1, whose partial is the chunk total; 64 at UNROLL > 1,
+//     which holds an accumulator, a total and one partial): a warp owns
+//     PM/2 x 32 outputs, PM/32 x 4 m16n8 fragments. Larger tiles are
+//     walked in passes. With scratch=1 each pass runs over all of K and
+//     stores once; with scratch=0 the passes run inside each chunk.
+//   * A (PM x D, k contiguous) and B (D x 128, n contiguous) are staged
+//     into a ring of `lookahead + 1` shared-memory stages by cp.async,
+//     D = 64 deep (32 where a sub-chunk is only 32 deep): while the warps
+//     compute on one slice, `lookahead` later slices are in flight,
+//     across pass and chunk boundaries. One __syncthreads a slice (two at
+//     lookahead 0, which has no overlap).
+//   * Rows are padded to D + 4 (A) and 136 (B) floats, so the fragment loads
+//     (8 rows x 4 columns of A, 4 rows x 8 columns of B per instruction)
+//     hit 32 different banks.
+//   * The 16-byte copy serves an operand whose row length is a multiple of
+//     4 floats and whose base is 16-byte aligned; any other stride (such
+//     as B rows of 450 floats) is copied 4 bytes at a time. Copies past an
+//     edge have a source size of 0 and fill zeros.
+//   * Fragments are split on the way from shared memory to the mma;
+//     accumulators never leave fp32 registers. Plain TF32 (one product)
+//     is never used.
+//   * Each ring depth is its own kernel (template parameter LA), picked by
+//     the launcher: with the depth a run-time value and wait_group's
+//     count behind a switch, the ring raced on the card.
+// Precision: chip_smoke.py reads 0.21 of its limit (rtol 2e-5, atol
+// 1e-3) over every instantiation; a TF32 product reads 90 times it. The
+// k-chunk partials (at most 512 deep, summed in fp32) bound the tensor
+// core's own accumulation error (tests/test_torch_tf32.py).
+// What bounds it now: latency more than the tensor cores' rate. At 255
+// registers a block of 8 warps fills an SM, 2 warps a scheduler, which
+// do not hide the chain from shared memory through the split to the
+// dependent mma.syncs (on an H100 80GB HBM3 at 700 W: 4.2 ms at the
+// up-projection at DEFAULT_POINT, cuBLAS fp32 3.6 ms).
+// Left for later: wgmma (it takes TF32 only K-major from shared memory,
+// so B would need a transposing stage), TMA copies with mbarriers and a
+// producer warp, a persistent grid.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace matmul {
 
 constexpr int kThreads = 256;
-constexpr int kTx = 16;            // threads along n
-constexpr int kTy = 16;            // threads along m
-constexpr int kR = 4;              // rows (and columns) per thread per pass
-constexpr int kSubM = kTy * kR;    // 64 rows per pass
-constexpr int kSubN = kTx * kR;    // 64 columns per pass
-constexpr int kSlice = 32;         // k depth staged per step
-constexpr int kPad = 4;            // keeps rows 16-byte aligned
-constexpr int kLd = kSubM + kPad;  // leading dimension of both slices
+constexpr int kPN = 128;       // pass tile columns
+constexpr int kLdB = kPN + 8;
 
-// shared memory of one block, in bytes (what the tuning space's Hopper
-// capacity rule counts)
-constexpr size_t kSmemBytes = sizeof(float) * 2 * kSlice * kLd;
-
-// Stage A[r0.., k0..k0+len) k-major into as[k][r] and B[k0.., c0..] into
-// bs[k][c]; zero outside the matrices and past `len` (the end of the
-// partial's sub-chunk, or K).
-__device__ __forceinline__ void stage(const float* __restrict__ a,
-                                      const float* __restrict__ b, int M, int N,
-                                      int K, int r0, int c0, int k0, int len,
-                                      float* as, float* bs) {
-  for (int e = threadIdx.x; e < kSubM * kSlice; e += kThreads) {
-    const int r = e / kSlice, k = e % kSlice;
-    const int gr = r0 + r, gk = k0 + k;
-    as[k * kLd + r] = (gr < M && k < len && gk < K) ? a[(size_t)gr * K + gk] : 0.f;
-  }
-  for (int e = threadIdx.x; e < kSlice * kSubN; e += kThreads) {
-    const int k = e / kSubN, c = e % kSubN;
-    const int gk = k0 + k, gc = c0 + c;
-    bs[k * kLd + c] = (gc < N && k < len && gk < K) ? b[(size_t)gk * N + gc] : 0.f;
-  }
-}
-
-// One chunk [kc0, kc0 + BK) of one 64x64 pass: this thread's 4x4 chunk
-// totals. UNROLL sub-chunks of BK / UNROLL keep independent partials,
-// each walked in 32-deep slices, summed in order into the total.
+// k depth of one staged slice: 64, or 32 where a sub-chunk is 32 deep
+// (block_k 128 at UNROLL 4); 64 halves the barriers of 32 and measured
+// 13 % faster at the serving shape
 template <int BK, int UNROLL>
-__device__ __forceinline__ void chunk_totals(const float* __restrict__ a,
-                                             const float* __restrict__ b, int M,
-                                             int N, int K, int r0, int c0, int kc0,
-                                             float* as, float* bs,
-                                             float total[kR][kR]) {
-  constexpr int kSub = BK / UNROLL;
-  const int ty = threadIdx.x / kTx, tx = threadIdx.x % kTx;
-  float part[UNROLL][kR][kR];
-#pragma unroll
-  for (int u = 0; u < UNROLL; ++u)
-#pragma unroll
-    for (int i = 0; i < kR; ++i)
-#pragma unroll
-      for (int j = 0; j < kR; ++j) part[u][i][j] = 0.f;
+__host__ __device__ constexpr int slice_depth() { return (BK / UNROLL) % 64 == 0 ? 64 : 32; }
 
-#pragma unroll
-  for (int u = 0; u < UNROLL; ++u) {
-    const int s0 = kc0 + u * kSub;
-#pragma unroll 1
-    for (int k0 = s0; k0 < s0 + kSub && k0 < K; k0 += kSlice) {
-      const int len = min(kSlice, s0 + kSub - k0);
-      __syncthreads();  // every thread is done with the previous slice
-      stage(a, b, M, N, K, r0, c0, k0, len, as, bs);
-      __syncthreads();
-#pragma unroll 8
-      for (int k = 0; k < kSlice; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(as + k * kLd + ty * kR);
-        const float4 bv = *reinterpret_cast<const float4*>(bs + k * kLd + tx * kR);
-        const float aa[kR] = {av.x, av.y, av.z, av.w};
-        const float bb[kR] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < kR; ++i)
-#pragma unroll
-          for (int j = 0; j < kR; ++j) part[u][i][j] = fmaf(aa[i], bb[j], part[u][i][j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kR; ++i)
-#pragma unroll
-    for (int j = 0; j < kR; ++j) {
-      float t = part[0][i][j];
-#pragma unroll
-      for (int u = 1; u < UNROLL; ++u) t += part[u][i][j];
-      total[i][j] = t;
-    }
+// pass tile rows of an instantiation
+template <int BM, int UNROLL>
+__host__ __device__ constexpr int pass_m() { return UNROLL == 1 ? (BM < 128 ? BM : 128) : 64; }
+
+// shared memory of one ring stage, in bytes (the tuning space's Hopper
+// capacity rule counts lookahead + 1 of them)
+template <int BM, int BK, int UNROLL>
+__host__ __device__ constexpr size_t stage_bytes() {
+  constexpr int slice = slice_depth<BK, UNROLL>();
+  return sizeof(float) * ((size_t)pass_m<BM, UNROLL>() * (slice + 4) + (size_t)slice * kLdB);
 }
 
-template <int BM, int BN, int BK, int UNROLL>
-__global__ void __launch_bounds__(kThreads)
+// One kernel per ring depth LA (= lookahead), picked by the launcher: the
+// ring's slot arithmetic and the wait_group count are compile-time
+// constants, and each depth gets its own register allocation.
+template <int BM, int BN, int BK, int UNROLL, int LA>
+__global__ void __launch_bounds__(kThreads, 1)
 matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
               float* __restrict__ c, int M, int N, int K, int order, int scratch) {
-  static_assert(BM % kSubM == 0 && BN % kSubN == 0, "tile is not a multiple of the 64x64 pass");
-  static_assert(BK % UNROLL == 0, "block_k must split into UNROLL sub-chunks");
-  constexpr int kPassN = BN / kSubN;
-  constexpr int kPasses = (BM / kSubM) * kPassN;
-  __shared__ __align__(16) float as[kSlice * kLd];
-  __shared__ __align__(16) float bs[kSlice * kLd];
+  constexpr int PM = pass_m<BM, UNROLL>();
+  constexpr int kSlice = slice_depth<BK, UNROLL>();
+  constexpr int kLdA = kSlice + 4;       // A rows padded: conflict-free fragments
+  constexpr int WM = PM / 2;             // warp tile rows
+  constexpr int MF = WM / 16;            // m16 fragments a warp
+  constexpr int NF = 4;                  // n8 fragments a warp (32 columns)
+  constexpr int kPassN = BN / kPN;
+  constexpr int kPasses = (BM / PM) * kPassN;
+  constexpr int kSub = BK / UNROLL;      // sub-chunk depth
+  constexpr int kSubSlices = kSub / kSlice;
+  constexpr int kChunkSlices = BK / kSlice;
+  constexpr int kStageFloats = PM * kLdA + kSlice * kLdB;
+  static_assert(BM % PM == 0 && BN % kPN == 0, "tile is not a multiple of the pass tile");
+  static_assert(BK % UNROLL == 0 && kSub % kSlice == 0,
+                "sub-chunks must be whole slices");
+  extern __shared__ __align__(16) float smem[];
 
   const int m_tiles = (M + BM - 1) / BM;
   const int n_tiles = (N + BN - 1) / BN;
@@ -149,83 +136,248 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
     bj = blockIdx.x / m_tiles;
     bi = blockIdx.x % m_tiles;
   }
-  const int ty = threadIdx.x / kTx, tx = threadIdx.x % kTx;
-  const int n_chunks = (K + BK - 1) / BK;
-  float total[kR][kR];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int wm = warp / 4, wn = warp % 4;
+  constexpr int la = LA, stages = LA + 1;
+  const int S = (K + kSlice - 1) / kSlice;  // slices over all of K
+  const int T = kPasses * S;                // (pass, slice) items
+  const bool vec_a = K % 4 == 0 && ((uintptr_t)a & 15) == 0;
+  const bool vec_b = N % 4 == 0 && ((uintptr_t)b & 15) == 0;
 
-  if (scratch) {
-    // registers: each pass keeps its accumulators across every chunk and
-    // stores once
-#pragma unroll 1
-    for (int p = 0; p < kPasses; ++p) {
-      const int r0 = bi * BM + (p / kPassN) * kSubM;
-      const int c0 = bj * BN + (p % kPassN) * kSubN;
-      float acc[kR][kR] = {};
-#pragma unroll 1
-      for (int kc = 0; kc < n_chunks; ++kc) {
-        chunk_totals<BK, UNROLL>(a, b, M, N, K, r0, c0, kc * BK, as, bs, total);
-#pragma unroll
-        for (int i = 0; i < kR; ++i)
-#pragma unroll
-          for (int j = 0; j < kR; ++j) acc[i][j] += total[i][j];
-      }
-#pragma unroll
-      for (int i = 0; i < kR; ++i)
-#pragma unroll
-        for (int j = 0; j < kR; ++j) {
-          const int gr = r0 + ty * kR + i, gc = c0 + tx * kR + j;
-          if (gr < M && gc < N) c[(size_t)gr * N + gc] = acc[i][j];
-        }
+  // item -> (pass, slice): pass-major with scratch, chunk-major without
+  auto item = [&](int idx, int& p, int& j) {
+    if (scratch) {
+      p = idx / S;
+      j = idx % S;
+    } else {
+      const int kc = idx / (kPasses * kChunkSlices);
+      const int r = idx - kc * kPasses * kChunkSlices;
+      const int len = min(kChunkSlices, S - kc * kChunkSlices);
+      p = r / len;
+      j = kc * kChunkSlices + r % len;
     }
-    return;
-  }
+  };
+  auto pass_origin = [&](int p, int& r0, int& c0) {
+    r0 = bi * BM + (p / kPassN) * PM;
+    c0 = bj * BN + (p % kPassN) * kPN;
+  };
 
-  // no scratch: after each chunk, each pass read-modify-writes its part
-  // of the output tile
-#pragma unroll 1
-  for (int kc = 0; kc < n_chunks; ++kc) {
-#pragma unroll 1
-    for (int p = 0; p < kPasses; ++p) {
-      const int r0 = bi * BM + (p / kPassN) * kSubM;
-      const int c0 = bj * BN + (p % kPassN) * kSubN;
-      chunk_totals<BK, UNROLL>(a, b, M, N, K, r0, c0, kc * BK, as, bs, total);
+  // stage item idx into ring slot `slot`
+  auto issue = [&](int idx, int slot) {
+    int p, j, r0, c0;
+    item(idx, p, j);
+    pass_origin(p, r0, c0);
+    const int k0 = j * kSlice;
+    float* as = smem + (size_t)slot * kStageFloats;
+    float* bs = as + PM * kLdA;
+    if (vec_a) {
+      for (int e = tid; e < PM * (kSlice / 4); e += kThreads) {
+        const int r = e / (kSlice / 4), kk = (e % (kSlice / 4)) * 4;
+        const int gr = r0 + r, gk = k0 + kk;
+        const int n = gr < M ? max(0, min(4, K - gk)) : 0;
+        sm90::cp_async16(as + r * kLdA + kk, n ? a + (size_t)gr * K + gk : a, 4 * n);
+      }
+    } else {
+      for (int e = tid; e < PM * kSlice; e += kThreads) {
+        const int r = e / kSlice, kk = e % kSlice;
+        const int gr = r0 + r, gk = k0 + kk;
+        const bool in = gr < M && gk < K;
+        sm90::cp_async4(as + r * kLdA + kk, in ? a + (size_t)gr * K + gk : a, in ? 4 : 0);
+      }
+    }
+    if (vec_b) {
+      for (int e = tid; e < kSlice * (kPN / 4); e += kThreads) {
+        const int kk = e / (kPN / 4), cc = (e % (kPN / 4)) * 4;
+        const int gk = k0 + kk, gc = c0 + cc;
+        const int n = gk < K ? max(0, min(4, N - gc)) : 0;
+        sm90::cp_async16(bs + kk * kLdB + cc, n ? b + (size_t)gk * N + gc : b, 4 * n);
+      }
+    } else {
+      for (int e = tid; e < kSlice * kPN; e += kThreads) {
+        const int kk = e / kPN, cc = e % kPN;
+        const int gk = k0 + kk, gc = c0 + cc;
+        const bool in = gk < K && gc < N;
+        sm90::cp_async4(bs + kk * kLdB + cc, in ? b + (size_t)gk * N + gc : b, in ? 4 : 0);
+      }
+    }
+  };
+
+  // this thread's outputs of a pass: rows r0 + wm*WM + mf*16 + g (+8),
+  // columns c0 + wn*32 + nf*8 + 2q (+1); `add` read-modify-writes
+  auto store = [&](int r0, int c0, float (*v)[NF][4], bool add) {
 #pragma unroll
-      for (int i = 0; i < kR; ++i)
+    for (int mf = 0; mf < MF; ++mf)
 #pragma unroll
-        for (int j = 0; j < kR; ++j) {
-          const int gr = r0 + ty * kR + i, gc = c0 + tx * kR + j;
-          if (gr < M && gc < N) {
-            float* o = c + (size_t)gr * N + gc;
-            *o = kc == 0 ? total[i][j] : *o + total[i][j];
+      for (int h = 0; h < 2; ++h) {
+        const int gr = r0 + wm * WM + mf * 16 + g + 8 * h;
+        if (gr >= M) continue;
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf) {
+          const int gc = c0 + wn * 32 + nf * 8 + 2 * q;
+          float* o = c + (size_t)gr * N + gc;
+          const float x0 = v[mf][nf][2 * h], x1 = v[mf][nf][2 * h + 1];
+          if (gc + 1 < N) {
+            o[0] = add ? o[0] + x0 : x0;
+            o[1] = add ? o[1] + x1 : x1;
+          } else if (gc < N) {
+            o[0] = add ? o[0] + x0 : x0;
           }
         }
+      }
+  };
+
+  float part[MF][NF][4];
+  float acc[MF][NF][4];
+  float total[UNROLL > 1 ? MF : 1][NF][4];
+#pragma unroll
+  for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+    for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[mf][nf][i] = 0.f;
+
+  for (int s = 0; s < la; ++s) {
+    if (s < T) issue(s, s);
+    sm90::cp_async_commit();
+  }
+
+#pragma unroll 1
+  for (int idx = 0; idx < T; ++idx) {
+    if constexpr (la == 0) {
+      __syncthreads();  // every warp is done with the only stage
+      issue(idx, 0);
+      sm90::cp_async_commit();
+    }
+    sm90::cp_async_wait(la == 0 ? 0 : la - 1);
+    __syncthreads();  // item idx has landed; slot (idx - 1) % stages is free
+    if constexpr (la > 0) {
+      if (idx + la < T) issue(idx + la, (idx + la) % stages);
+      sm90::cp_async_commit();
+    }
+
+    int p, j, r0, c0;
+    item(idx, p, j);
+    pass_origin(p, r0, c0);
+    if (scratch && j == 0) {
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mf][nf][i] = 0.f;
+    }
+
+    const float* as = smem + (size_t)(idx % stages) * kStageFloats;
+    const float* bs = as + PM * kLdA;
+#pragma unroll
+    for (int kk = 0; kk < kSlice; kk += 8) {
+      uint32_t bb[NF][2], bsm[NF][2];
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf) {
+        const int col = wn * 32 + nf * 8 + g;
+        sm90::tf32_split(bs[(kk + q) * kLdB + col], bb[nf][0], bsm[nf][0]);
+        sm90::tf32_split(bs[(kk + q + 4) * kLdB + col], bb[nf][1], bsm[nf][1]);
+      }
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf) {
+        const int row = wm * WM + mf * 16 + g;
+        uint32_t ab[4], asm_[4];
+        sm90::tf32_split(as[row * kLdA + kk + q], ab[0], asm_[0]);
+        sm90::tf32_split(as[(row + 8) * kLdA + kk + q], ab[1], asm_[1]);
+        sm90::tf32_split(as[row * kLdA + kk + q + 4], ab[2], asm_[2]);
+        sm90::tf32_split(as[(row + 8) * kLdA + kk + q + 4], ab[3], asm_[3]);
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf)
+          sm90::mma_3xtf32(part[mf][nf], ab, asm_, bb[nf], bsm[nf]);
+      }
+    }
+
+    // the slice ends a sub-chunk, a chunk, a pass?
+    const bool last = j == S - 1;
+    if (!(last || (j + 1) % kSubSlices == 0)) continue;
+    const bool chunk_end = last || (j + 1) % kChunkSlices == 0;
+    float (*chunk_total)[NF][4] = part;
+    if constexpr (UNROLL > 1) {
+      const bool first_sub = (j % kChunkSlices) < kSubSlices;
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            total[mf][nf][i] = first_sub ? part[mf][nf][i] : total[mf][nf][i] + part[mf][nf][i];
+            part[mf][nf][i] = 0.f;
+          }
+      chunk_total = total;
+    }
+    if (chunk_end) {
+      if (scratch) {
+#pragma unroll
+        for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[mf][nf][i] += chunk_total[mf][nf][i];
+        if (last) store(r0, c0, acc, false);
+      } else {
+        store(r0, c0, chunk_total, j >= kChunkSlices);
+      }
+    }
+    if constexpr (UNROLL == 1) {
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[mf][nf][i] = 0.f;
     }
   }
+  sm90::cp_async_wait(0);  // nothing in flight when the block exits
 }
 
 // Host launcher for one instantiation: on `stream`, allocates nothing,
 // does not synchronise; returns the launch status (cudaGetLastError),
 // which the Python wrapper turns into an exception.
-template <int BM, int BN, int BK, int UNROLL>
-int launch(const float* a, const float* b, float* c, int M, int N, int K,
-           int order, int scratch, void* stream) {
+template <int BM, int BN, int BK, int UNROLL, int LA>
+int launch_depth(const float* a, const float* b, float* c, int M, int N, int K,
+                 int order, int scratch, void* stream) {
+  const size_t smem = (size_t)(LA + 1) * stage_bytes<BM, BK, UNROLL>();
+  // above 48 KB, dynamic shared memory must be opted in to; the attribute
+  // belongs to the current device, so it is set on every launch
+  const cudaError_t attr = cudaFuncSetAttribute(
+      matmul_kernel<BM, BN, BK, UNROLL, LA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   if (blocks <= 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  matmul_kernel<BM, BN, BK, UNROLL>
-      <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(a, b, c, M, N, K,
-                                                                 order, scratch);
+  matmul_kernel<BM, BN, BK, UNROLL, LA>
+      <<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(a, b, c, M, N, K, order,
+                                                                  scratch);
   return (int)cudaGetLastError();
+}
+
+template <int BM, int BN, int BK, int UNROLL>
+int launch(const float* a, const float* b, float* c, int M, int N, int K,
+           int order, int scratch, int lookahead, void* stream) {
+  switch (lookahead) {
+    case 0: return launch_depth<BM, BN, BK, UNROLL, 0>(a, b, c, M, N, K, order, scratch, stream);
+    case 1: return launch_depth<BM, BN, BK, UNROLL, 1>(a, b, c, M, N, K, order, scratch, stream);
+    case 2: return launch_depth<BM, BN, BK, UNROLL, 2>(a, b, c, M, N, K, order, scratch, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace matmul
 
 // One exported C symbol per instantiation:
 //   int matmul_bm<BM>_bn<BN>_bk<BK>_u<UNROLL>(a, b, c, M, N, K, order,
-//                                             scratch, stream)
-#define MATMUL_INSTANTIATE(BM, BN, BK, U)                                           \
-  extern "C" int matmul_bm##BM##_bn##BN##_bk##BK##_u##U(                            \
-      const float* a, const float* b, float* c, int M, int N, int K, int order,     \
-      int scratch, void* stream) {                                                  \
-    return matmul::launch<BM, BN, BK, U>(a, b, c, M, N, K, order, scratch, stream); \
+//                                             scratch, lookahead, stream)
+#define MATMUL_INSTANTIATE(BM, BN, BK, U)                                             \
+  extern "C" int matmul_bm##BM##_bn##BN##_bk##BK##_u##U(                              \
+      const float* a, const float* b, float* c, int M, int N, int K, int order,       \
+      int scratch, int lookahead, void* stream) {                                     \
+    return matmul::launch<BM, BN, BK, U>(a, b, c, M, N, K, order, scratch, lookahead, \
+                                         stream);                                     \
   }

@@ -10,13 +10,16 @@ place of ``matmul_pallas``, with the same tuning point:
   order     — "mn" | "nm" block-id-to-tile mapping (IS)
   scratch   — 1: accumulate in registers, store once
               0: read-modify-write the output tile after every chunk
-  lookahead — inert (the chunk loop does not prefetch)
+  lookahead — slices of A and B (64 or 32 deep) in flight ahead of the one
+              computed (a ring of lookahead + 1 shared-memory stages)
 
 The kernel is CUDA C++ (``csrc/matmul.cuh``; its header comment is the
-design note). ``block_m``, ``block_n``, ``block_k`` and ``unroll`` are
-template parameters, one instantiation per combination (108), all built
-once into one shared library; ``order``, ``scratch`` and ``lookahead``
-are run-time arguments. Generating a variant resolves its symbol.
+design note): 3xTF32 products on the tensor cores (``mma.sync``, fp32
+accuracy), operands staged by ``cp.async``. ``block_m``, ``block_n``,
+``block_k`` and ``unroll`` are template parameters, one instantiation
+per combination (108), all built once into one shared library;
+``order``, ``scratch`` and ``lookahead`` are run-time arguments.
+Generating a variant resolves its symbol.
 
 ``matmul_plain`` is the same function in plain PyTorch, chunk for chunk
 and partial for partial. The wrapper uses it only for tensors on the
@@ -47,12 +50,38 @@ PHASE1 = ("block_m", "block_n", "block_k", "unroll")
 OPTIONS = {"block_m": (64, 128, 256, 512), "block_n": (128, 256, 512),
            "block_k": (128, 256, 512), "unroll": (1, 2, 4)}
 
-#: shared memory of one block (csrc/matmul.cuh ``kSmemBytes``): one 64x32
-#: slice of A and one 32x64 slice of B, rows padded by 4 floats
-SMEM_BYTES = 4 * 2 * 32 * (64 + 4)
+#: padded row length of the staged B slices (csrc/matmul.cuh ``kLdB``)
+_LD_B = 128 + 8
+
+
+def pass_m(point: Point) -> int:
+    """Rows of the pass tile the block holds in registers
+    (``matmul::pass_m``): 128 or ``block_m`` at ``unroll`` 1, else 64."""
+    bm, unroll = int(point["block_m"]), int(point.get("unroll", 1))
+    return min(bm, 128) if unroll == 1 else 64
+
+
+def slice_depth(point: Point) -> int:
+    """k depth of a staged slice (``matmul::slice_depth``): 64, or 32
+    where a sub-chunk (``block_k / unroll``) is 32 deep."""
+    return 64 if (int(point["block_k"]) // int(point.get("unroll", 1))) % 64 == 0 else 32
+
+
+def smem_bytes(point: Point) -> int:
+    """Shared memory of one block at ``point``: ``lookahead + 1`` ring
+    stages, each a (pass rows x depth) slice of A and a depth x 128 slice
+    of B, rows padded (``matmul::stage_bytes``)."""
+    depth = slice_depth(point)
+    stage = 4 * (pass_m(point) * (depth + 4) + depth * _LD_B)
+    return (int(point.get("lookahead", 1)) + 1) * stage
+
+
+#: the largest footprint of any instantiation (128-row passes, 64-deep
+#: slices, three stages: 204 kB)
+SMEM_BYTES = smem_bytes({"block_m": 128, "block_k": 256, "unroll": 1, "lookahead": 2})
 
 _ORDERS = {"mn": 0, "nm": 1}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def symbol(point: Point) -> str:
@@ -112,13 +141,16 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, point: Point, *,
     N = b.shape[1]
     if min(M, N, K) < 1 or max(M * K, K * N, M * N) >= 2**62 or max(M, N, K) >= 2**31:
         raise ValueError(f"unsupported shape M={M} N={N} K={K}")
+    lookahead = int(point.get("lookahead", 1))
+    if lookahead not in (0, 1, 2):
+        raise ValueError(f"lookahead {lookahead}: the kernel takes 0, 1 or 2")
     if lib is None:
         lib = build_kernels(a.device)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     lib.launch(symbol(point), a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
                _ORDERS[point.get("order", "mn")], int(bool(point.get("scratch", 1))),
-               stream)
+               lookahead, stream)
     matmul_cuda.launches += 1
     return out
 
@@ -155,4 +187,4 @@ def matmul_plain(a: torch.Tensor, b: torch.Tensor, point: Point) -> torch.Tensor
 
 
 __all__ = ["OPTIONS", "PHASE1", "SMEM_BYTES", "build_kernels", "instantiations",
-           "matmul_cuda", "matmul_plain", "symbol"]
+           "matmul_cuda", "matmul_plain", "smem_bytes", "symbol"]

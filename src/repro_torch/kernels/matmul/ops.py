@@ -7,11 +7,12 @@ CUDA C++) on a CUDA device and its plain version on the CPU.
 **Capacity rule.** At the reference's capacity (``vmem_kb`` of the TPU
 profile) the validator is the TPU kernel's VMEM footprint: the A, B and
 output blocks (and the scratch accumulator). On a CUDA device
-(``hopper=True``) it checks what the Hopper kernel holds on chip: one
-64x32 slice of A and one 32x64 slice of B in shared memory
-(:data:`~repro_torch.kernels.matmul.matmul.SMEM_BYTES`, 17 kB) whatever
-the tile, since the tile is walked in 64x64 passes and 32-deep slices;
-and ``block_k`` must be one of the instantiated chunk depths.
+(``hopper=True``) it checks what the Hopper kernel holds in shared
+memory: its ring of ``lookahead + 1`` stages, each a slice of A (the
+pass tile's rows x 64 or 32) and a 64 or 32 x 128 slice of B
+(:func:`~repro_torch.kernels.matmul.matmul.smem_bytes`, 26–204 kB),
+whatever the tile, since the tile is walked in passes and slices; and
+``block_k`` must be one of the instantiated chunk depths.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from repro_torch.interop import resolve_device
 from repro_torch.kernels.catalog import (
     KernelDef, example_fill, spec_capacity_kb, spec_on_cuda, torch_dtype)
 from repro_torch.kernels.matmul.matmul import (
-    OPTIONS, SMEM_BYTES, build_kernels, matmul_cuda, matmul_plain, symbol)
+    OPTIONS, build_kernels, matmul_cuda, matmul_plain, smem_bytes, symbol)
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 DEFAULT_POINT: Point = {
@@ -66,7 +67,7 @@ def make_space(
             return False  # degenerate over-tiling
         if hopper:
             return (p["block_k"] in OPTIONS["block_k"]
-                    and SMEM_BYTES <= vmem_kb * 1024)
+                    and smem_bytes(p) <= vmem_kb * 1024)
         # VMEM footprint hole (the register-pressure analogue)
         words = (
             p["block_m"] * p["block_k"]

@@ -5,10 +5,20 @@
 // statics (blocks never overlap), dynamic shared memory one buffer per
 // launch. It checks indexing, masking and synchronization, not speed,
 // and says nothing about what nvcc accepts or how the card schedules.
+//
+// The Hopper primitives of src/repro_torch/kernels/_csrc/sm90.cuh have
+// host versions here, in the same namespace: tf32_split rounds to
+// nearest, ties away, on the low 13 mantissa bits; the m16n8k8 product
+// gathers the warp's fragments through a per-warp exchange, in PTX's
+// documented fragment layout, so a kernel's fragment indexing is really
+// checked; cp.async copies (with zero-fill) are held per thread in commit
+// groups and land when cp_async_wait retires their group, so a stage read
+// before its wait reads stale data, as it may on the card.
 #pragma once
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstring>
 #include <functional>
 #include <algorithm>
@@ -19,7 +29,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(x)
 #define __restrict__
@@ -28,6 +38,8 @@ inline thread_local dim3_ threadIdx, blockIdx;
 inline dim3_ blockDim;
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 using std::min; using std::max;
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
@@ -46,8 +58,88 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   g_warp_barriers[w]->arrive_and_wait();
   return r;
 }
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int t = threadIdx.x, w = t / 32;
+  g_shfl[t] = v;
+  g_warp_barriers[w]->arrive_and_wait();
+  const float r = g_shfl[w * 32 + (src & 31)];
+  g_warp_barriers[w]->arrive_and_wait();
+  return r;
+}
+inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
+inline uint32_t g_mma_a[1024][4];
+inline uint32_t g_mma_b[1024][2];
+namespace sm90 {
+inline uint32_t tf32_round(float x) {
+  uint32_t u = __float_as_uint(x);
+  if ((u & 0x7f800000u) != 0x7f800000u) u = (u + 0x1000u) & 0xffffe000u;
+  return u;
+}
+inline void tf32_split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_round(x);
+  small = tf32_round(x - __uint_as_float(big));
+}
+inline void mma_tf32_m16n8k8(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  const int t = threadIdx.x, w = t / 32, base = w * 32, lane = t % 32;
+  for (int i = 0; i < 4; ++i) g_mma_a[t][i] = a[i];
+  for (int i = 0; i < 2; ++i) g_mma_b[t][i] = b[i];
+  g_warp_barriers[w]->arrive_and_wait();
+  // the tensor core reads the tf32 bits only
+  auto f = [](uint32_t u) { return (double)__uint_as_float(u & 0xffffe000u); };
+  double A[16][8], B[8][8];
+  for (int l = 0; l < 32; ++l) {
+    const int gg = l / 4, qq = l % 4;
+    A[gg][qq] = f(g_mma_a[base + l][0]);
+    A[gg + 8][qq] = f(g_mma_a[base + l][1]);
+    A[gg][qq + 4] = f(g_mma_a[base + l][2]);
+    A[gg + 8][qq + 4] = f(g_mma_a[base + l][3]);
+    B[qq][gg] = f(g_mma_b[base + l][0]);
+    B[qq + 4][gg] = f(g_mma_b[base + l][1]);
+  }
+  g_warp_barriers[w]->arrive_and_wait();
+  const int g = lane / 4, q = lane % 4;
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i / 2), c = 2 * q + i % 2;
+    double s = d[i];
+    for (int k = 0; k < 8; ++k) s += A[r][k] * B[k][c];
+    d[i] = (float)s;
+  }
+}
+inline void mma_3xtf32(float d[4], const uint32_t a_big[4], const uint32_t a_small[4],
+                       const uint32_t b_big[2], const uint32_t b_small[2]) {
+  mma_tf32_m16n8k8(d, a_small, b_big);
+  mma_tf32_m16n8k8(d, a_big, b_small);
+  mma_tf32_m16n8k8(d, a_big, b_big);
+}
+// cp.async lands only when a wait_group retires its group: a kernel that
+// reads a stage before waiting for it reads stale data here too
+struct EmuCopy { void* dst; const void* src; int size, src_bytes; };
+inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+inline thread_local std::vector<EmuCopy> emu_open;
+inline void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  emu_open.push_back({smem, gmem, 16, src_bytes});
+}
+inline void cp_async4(void* smem, const void* gmem, int src_bytes) {
+  emu_open.push_back({smem, gmem, 4, src_bytes});
+}
+inline void cp_async_commit() {
+  emu_groups.push_back(std::move(emu_open));
+  emu_open.clear();
+}
+inline void cp_async_wait(int pending) {
+  pending = pending < 0 ? 0 : (pending > 2 ? 2 : pending);
+  while ((int)emu_groups.size() > pending) {
+    for (const EmuCopy& c : emu_groups.front()) {
+      std::memset(c.dst, 0, (size_t)c.size);
+      if (c.src_bytes > 0) std::memcpy(c.dst, c.src, (size_t)c.src_bytes);
+    }
+    emu_groups.erase(emu_groups.begin());
+  }
+}
+}  // namespace sm90
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidConfiguration = 9 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }

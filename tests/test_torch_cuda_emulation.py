@@ -9,11 +9,21 @@ PyTorch versions. This checks the kernels' indexing, masking and
 synchronization in tier-1; what nvcc accepts and how fast the card runs
 them only ``chip_smoke.py`` shows.
 
+The matmul and attention kernels call the Hopper primitives of
+``kernels/_csrc/sm90.cuh``; the emulator supplies host versions of them
+(the TF32 split, the m16n8k8 product over the warp's fragments in PTX's
+layout, cp.async as a synchronous zero-filling copy). Their cases cover
+every ring depth (``lookahead`` 0, 1 and 2), row strides that are not a
+multiple of 4 floats (the 4-byte copies), misaligned k and v, and causal
+calls with ``q_offset``.
+
 Tolerances: euclid rtol 2e-5, atol 1e-4 (the plain version's chunked
-sums, another order); matmul rtol 1e-5, atol 1e-4 (fp32 sums of K <= 300 products
-in another order); attention rtol 1e-5, atol 1e-5 (online softmax over
-64-key slices against the plain version's blocks); rmsnorm rtol 1e-5,
-atol 1e-5 (fp32), 1e-2 for bfloat16 outputs (one rounding).
+sums, another order); matmul rtol 1e-5, atol 1e-4 (sums of K <= 300
+products in another order; the 3xTF32 products drop small*small, about
+2^-22 of each product); attention rtol 1e-5, atol 1e-5 (online softmax
+over 32-key slices against the plain version's blocks, 3xTF32 products
+as for matmul); rmsnorm rtol 1e-5, atol 1e-5 (fp32), 1e-2 for bfloat16
+outputs (one rounding).
 """
 
 import ctypes
@@ -53,6 +63,8 @@ def _emulated_source(family: str) -> str:
     memory rewritten for the emulator."""
     src = (KERNELS / family / "csrc" / f"{family}.cuh").read_text()
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emulator.h"')
+    # the emulator supplies the host versions of the shared Hopper primitives
+    src = src.replace('#include "sm90.cuh"', "")
     src = src.replace("#include <cuda_bf16.h>", "")
     src = src.replace("extern __shared__ __align__(16) float smem[];",
                       "float* smem = (float*)emu_dyn_smem;")
@@ -120,7 +132,23 @@ def test_emulated_matmul_matches_its_plain_version(emulated, pi):
     out = torch.full((M, N), float("nan"))
     launch(emulated["matmul"], tmatmul.symbol(point), tmatmul._ARGTYPES,
            a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-           tmatmul._ORDERS[point["order"]], point["scratch"], None)
+           tmatmul._ORDERS[point["order"]], point["scratch"], point.get("lookahead", 1),
+           None)
+    torch.testing.assert_close(out, tmatmul.matmul_plain(a, b, point),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("lookahead", [0, 1, 2])
+@pytest.mark.parametrize("M,N,K", [(70, 150, 300), (33, 131, 203)])
+def test_emulated_matmul_ring_depths_and_row_strides(emulated, M, N, K, lookahead):
+    """Every ring depth; B rows of 150 or 131 floats and A rows of 203
+    (not multiples of 4: the 4-byte copies), both scratch modes."""
+    point = dict(MATMUL_POINTS[(lookahead + K) % len(MATMUL_POINTS)], lookahead=lookahead)
+    a, b = randn(M, K, seed=lookahead), randn(K, N, seed=lookahead + 10)
+    out = torch.full((M, N), float("nan"))
+    launch(emulated["matmul"], tmatmul.symbol(point), tmatmul._ARGTYPES,
+           a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
+           tmatmul._ORDERS[point["order"]], point["scratch"], lookahead, None)
     torch.testing.assert_close(out, tmatmul.matmul_plain(a, b, point),
                                rtol=1e-5, atol=1e-4)
 
@@ -139,7 +167,7 @@ def test_emulated_flash_attention_matches_its_plain_version(
     out = torch.full_like(q, float("nan"))
     launch(emulated["attention"], tattn.symbol(point, Tq, Tkv), tattn._ARGTYPES,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-           B, Tq, Tkv, H, Hk, causal, q_offset, 128 ** -0.5, None)
+           B, Tq, Tkv, H, Hk, causal, q_offset, 128 ** -0.5, 1, None)
     want = tattn.flash_attention_plain(q, k, v, point, causal=bool(causal),
                                        q_offset=q_offset)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
@@ -175,3 +203,24 @@ def test_emulated_euclid_matches_its_plain_version(emulated, pi):
            teuclid._ORDERS[point["order"]], point["scratch"], None)
     torch.testing.assert_close(out, teuclid.euclid_plain(x, c, point),
                                rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("lookahead,aligned", [(0, True), (1, True), (2, True), (1, False)])
+def test_emulated_flash_attention_ring_depths(emulated, lookahead, aligned):
+    """Causal with q_offset (the query rows sit at the end of a longer kv
+    sequence, GQA G = 2) at every ring depth; k and v one float past a
+    16-byte boundary take the 4-byte copies."""
+    B, Tq, Tkv, H, Hk, q_offset = 1, 150, 280, 4, 2, 130
+    point = ATTENTION_POINTS[lookahead]
+    q = randn(B, Tq, H, 128, seed=4)
+    n = B * Tkv * Hk * 128
+    shift = 0 if aligned else 1
+    k = randn(n + shift, seed=5)[shift:].view(B, Tkv, Hk, 128)
+    v = randn(n + shift, seed=6)[shift:].view(B, Tkv, Hk, 128)
+    assert (k.data_ptr() % 16 == 0) == aligned
+    out = torch.full_like(q, float("nan"))
+    launch(emulated["attention"], tattn.symbol(point, Tq, Tkv), tattn._ARGTYPES,
+           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           B, Tq, Tkv, H, Hk, 1, q_offset, 128 ** -0.5, lookahead, None)
+    want = tattn.flash_attention_plain(q, k, v, point, q_offset=q_offset)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)

@@ -259,3 +259,26 @@ def test_library_lookup_is_memoised(family, monkeypatch):
         assert loads == [family]
     finally:
         lookup.cache_clear()
+
+
+@pytest.mark.parametrize("family", ["matmul", "attention"])
+def test_hopper_capacity_rule_counts_the_ring_at_the_points_lookahead(family):
+    """The Hopper rule counts ``lookahead + 1`` ring stages: at a capacity
+    between the shallowest and the deepest ring, points differ only in
+    ``lookahead`` and the deeper ones are refused."""
+    if family == "matmul":
+        kernel, space_at = tmatmul_kernel, lambda kb: tmatmul.make_space(
+            2048, 11008, 4096, vmem_kb=kb, hopper=True)
+        point = dict(tmatmul.DEFAULT_POINT)
+    else:
+        kernel, space_at = tattn_kernel, lambda kb: tattn.make_space(
+            512, 512, 128, vmem_kb=kb, hopper=True)
+        point = dict(tattn.DEFAULT_POINT)
+    sizes = [kernel.smem_bytes(dict(point, lookahead=la)) for la in (0, 1, 2)]
+    assert sizes[0] < sizes[1] < sizes[2] <= kernel.SMEM_BYTES <= H100_SMEM_KB * 1024
+    cap_kb = sizes[1] // 1024 + 1          # room for two stages, not three
+    space = space_at(cap_kb)
+    assert [space.is_valid(dict(point, lookahead=la)) for la in (0, 1, 2)] == \
+        [True, True, False]
+    assert all(space.is_valid(dict(point, lookahead=la)) for la in (0, 1, 2)
+               for space in [space_at(H100_SMEM_KB)])
