@@ -18,12 +18,14 @@ the kernels' launch counts set to 0 just before and read just after:
    running the matmul, rmsnorm and flash-attention CUDA C++ kernels.
 
 Then it holds each kernel against its plain PyTorch version (every
-instantiation at ragged shapes, a few points at the main path's shapes,
-with limits a TF32 product fails, and a TF32 control that shows it),
-compares the served model's prefill logits with the plain versions on
-the CPU at full width and 2 layers, and times each kernel beside its
-bound, its plain version and one PyTorch library call. It prints one
-``kernels`` JSON line and, last, ``{"ok": true, "device": {...}}``.
+instantiation at every ring depth at ragged shapes, a few points at the
+main path's shapes, with limits a TF32 product fails, and a TF32 control
+that shows it), compares the served model's prefill logits with the
+plain versions on the CPU at full width and 2 layers, and times each
+kernel beside its bound, its plain version and one PyTorch library call
+(euclid at each Table 3 input; rmsnorm at prefill's and decode's
+shapes). It prints one ``kernels`` JSON line and, last, ``{"ok": true,
+"device": {...}}``.
 A profiler trace of one prefill and a few decode steps at full width
 says where the serving time goes (device busy share, kernels by device
 time).
@@ -33,7 +35,8 @@ non-zero and prints no result. Full results go to
 ``chiprun_out/chip_smoke.json``. ``--only build,check`` (any of
 ``build``, ``table3``, ``serve``, ``profile``, ``check``, ``logits``,
 ``time``) runs a subset and prints no verdict: a quick look at a new
-kernel.
+kernel (``--only build,check,time`` times the kernels at DEFAULT_POINT
+where Table 3 has not run).
 """
 
 from __future__ import annotations
@@ -125,6 +128,36 @@ def time_ms(fn, *args, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, *args, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device milliseconds of ``fn(*args)`` with the host out of the
+    way: ``reps`` calls captured in one CUDA graph, replayed three times
+    between two events. For calls shorter than their host cost (a Python
+    wrapper takes tens of microseconds), where ``time_ms`` times the
+    host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def serving(row: dict, default: dict) -> dict:
     """The point that served at the end of a Table 3 row's O-AT run (the
     default point when the reference kept serving)."""
@@ -151,9 +184,11 @@ def tol_used(got, want, tol: dict) -> float:
 
 
 def check_euclid(lib, dev, gen) -> dict:
-    """Every instantiation against the plain version at ragged shapes,
-    plus a few points at simlarge, then a control: a TF32 product at
-    simlarge must fail the same limit."""
+    """Every instantiation at every ring depth against the plain version
+    at ragged shapes (N, M no multiple of any block; D = 70 or 130, rows
+    of 280 or 520 bytes, the 4-byte copies), plus a few points at
+    simlarge, then a control: a TF32 product at simlarge must fail the
+    same limit."""
     import torch
 
     from repro_torch.kernels.euclid.euclid import PHASE1, euclid_cuda, euclid_plain
@@ -162,20 +197,23 @@ def check_euclid(lib, dev, gen) -> dict:
 
     cap = lib_capacity_kb(dev)
     points = kernel_points(cap)
+    spaces = {d: make_space(1000, 1000, d, vmem_kb=cap, hopper=True) for d in (70, 130)}
     cases = []
-    for d in (70, 130):
-        space = make_space(1000, 1000, d, vmem_kb=cap)
-        for i, tup in enumerate(points):
-            for scratch in (i % 2, 1 - i % 2):
-                point = dict(zip(PHASE1, tup), order=("nm", "mn")[i // 2 % 2],
-                             scratch=scratch, lookahead=i % 3)
-                if space.is_valid(point):
-                    cases.append(((1000, 1000, d), point))
-                    break
-    covered = {tuple(p[k] for k in PHASE1) for _, p in cases}
-    if covered != set(points) or len(points) != len(lib.symbols):
-        fail(f"{len(set(points) - covered)} instantiations left unchecked")
-    big = make_space(16384, 1024, 128, vmem_kb=cap)
+    for i, tup in enumerate(points):
+        for la in (0, 1, 2):
+            k = 3 * i + la
+            point = dict(zip(PHASE1, tup), order=("nm", "mn")[k % 2],
+                         scratch=(k // 2) % 2, lookahead=la)
+            d = next((d for d in (70, 130)[::1 - 2 * (k % 2)]
+                      if spaces[d].is_valid(point)), None)
+            if d is not None:
+                cases.append(((1000, 1000, d), point))
+    covered = {(tuple(p[k] for k in PHASE1), p["lookahead"]) for _, p in cases}
+    if covered != {(t, la) for t in points for la in (0, 1, 2)} \
+            or len(points) != len(lib.symbols):
+        fail(f"{3 * len(points) - len(covered)} (instantiation, ring depth) pairs "
+             f"left unchecked")
+    big = make_space(16384, 1024, 128, vmem_kb=cap, hopper=True)
     picks = [p for i, p in enumerate(big.iter_valid()) if i % 271 == 0]
     cases += [((16384, 1024, 128), p) for p in picks]
     worst, used, inputs = 0.0, 0.0, {}
@@ -194,22 +232,16 @@ def check_euclid(lib, dev, gen) -> dict:
         if not torch.allclose(got, want, **EUCLID_TOL):
             fail(f"euclid {point} at {(n, m, d)}: max|err| {err:.3e} beyond "
                  f"{EUCLID_TOL}")
-    print(f"euclid: {len(cases)} checks over {len(covered)} instantiations, "
-          f"max|err| {worst:.3e} within rtol={EUCLID_TOL['rtol']} "
+    print(f"euclid: {len(cases)} checks over {len(points)} instantiations x 3 ring "
+          f"depths, max|err| {worst:.3e} within rtol={EUCLID_TOL['rtol']} "
           f"atol={EUCLID_TOL['atol']} ({used:.3f} of the limit)")
 
     # control: the same limit must refuse a TF32 product
     x, c = inputs[(16384, 1024, 128)]
     want = euclid_plain(x, c, DEFAULT_POINT)
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        tf32 = reference_simd(128)(x, c)
-        torch.cuda.synchronize()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-    tf32_err = float((tf32 - want).abs().max())
-    tf32_used = tol_used(tf32, want, EUCLID_TOL)
-    if torch.allclose(tf32, want, **EUCLID_TOL):
+    tf32_err, tf32_used = tf32_reading(lambda: reference_simd(128)(x, c), want,
+                                       EUCLID_TOL)
+    if tf32_used <= 1.0:
         fail(f"a TF32 product (max|err| {tf32_err:.3e}) passes the euclid "
              f"limit {EUCLID_TOL}: the check cannot see a loss of precision")
     print(f"euclid control: a TF32 product at simlarge, max|err| "
@@ -307,7 +339,9 @@ def build_all(dev) -> tuple[dict, dict]:
                         **ptxas_summary(lib.built.path.with_suffix(".ptxas.log"))}
         print(f"{name} build: {lib.build_s:.1f} s for {n} instantiations "
               f"(sm_90a); ptxas: {report[name]}")
-    print(f"builds: {wall:.1f} s wall, in parallel")
+    report["euclid"]["load_s"] = libs["euclid"].load_s
+    print(f"builds: {wall:.1f} s wall, in parallel; euclid's kernels loaded into "
+          f"the context in {report['euclid']['load_s']:.3f} s (inside that wall)")
     return libs, report
 
 
@@ -318,6 +352,7 @@ def reset_lm_counts() -> None:
 
     for fn in (matmul_cuda, rmsnorm_cuda, flash_attention_cuda):
         fn.launches = 0
+    rmsnorm_cuda.launches_by_rows = {}
 
 
 def lm_counts() -> dict:
@@ -361,7 +396,11 @@ def run_serve() -> dict:
     serve_cli.serve(args, tcfg, on_request=on_request)
     seconds = time.perf_counter() - t0
     launches = lm_counts()
-    print(f"serve path: {seconds:.1f} s, kernel launches {launches}")
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
+    rms_by_rows = dict(sorted(rmsnorm_cuda.launches_by_rows.items()))
+    print(f"serve path: {seconds:.1f} s, kernel launches {launches}; rmsnorm "
+          f"launches by rows {rms_by_rows} (prefill 2048, decode 4; other row "
+          f"counts are the tuner's evaluations)")
     registered = set(rows[-1]["kernels"])
     print(f"  plane handles: {sorted(registered)}; decode_attention registered: "
           f"{'decode_attention' in registered} (its validator refuses every "
@@ -376,7 +415,7 @@ def run_serve() -> dict:
     if faulted:
         fail(f"variants were quarantined in requests {faulted}")
     return {"seconds": seconds, "launches": launches, "requests": rows,
-            "handles": sorted(registered)}
+            "handles": sorted(registered), "rmsnorm_launches_by_rows": rms_by_rows}
 
 
 def profile_serve(dev, decode_steps: int = 8) -> dict:
@@ -442,11 +481,13 @@ def profile_serve(dev, decode_steps: int = 8) -> dict:
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         out[phase] = {"wall_s": wall, "device_busy_s": busy_s,
                       "device_busy_share": busy_s / wall,
+                      "rmsnorm_ms": sum(v for k, v in dev_us.items() if "rmsnorm" in k) * 1e-3,
                       "top_kernels_ms": {k: v * 1e-3 for k, v in top}}
     out["decode"]["step_s"] = out["decode"]["wall_s"] / decode_steps
     for phase, o in out.items():
         print(f"profile {phase}: {o['wall_s']:.4f} s on the host clock, device "
-              f"busy {o['device_busy_s']:.4f} s ({100 * o['device_busy_share']:.1f}%); "
+              f"busy {o['device_busy_s']:.4f} s ({100 * o['device_busy_share']:.1f}%), "
+              f"rmsnorm {o['rmsnorm_ms']:.3f} ms; "
               f"top kernels (ms): "
               + ", ".join(f"{k[:40]} {v:.1f}" for k, v in list(o["top_kernels_ms"].items())[:5]))
     del params
@@ -582,9 +623,10 @@ def check_attention(lib, dev, gen) -> dict:
 
 
 def check_rmsnorm(lib, dev, gen) -> dict:
-    """Every instantiation and type at ragged shapes (N below and not a
-    multiple of block_rows, d not a multiple of 4) and at the serving
-    shapes."""
+    """Every instantiation at every ring depth and type at ragged shapes
+    (N not a multiple of block_rows, d not a multiple of 4: the element
+    copies) and at the serving shapes, prefill's (2048, 4096) and
+    decode's (4, 4096)."""
     import torch
 
     from repro_torch.kernels.rmsnorm.rmsnorm import (
@@ -597,10 +639,11 @@ def check_rmsnorm(lib, dev, gen) -> dict:
             x = torch.randn(N, d, generator=gen, device=dev).to(dtype)
             w = torch.randn(d, generator=gen, device=dev).to(dtype)
             for rows in BLOCK_ROWS:
-                point = {"block_rows": rows, "lookahead": 1}
-                cases.append((f"{point} at {(N, d)} {dtype}",
-                              lambda x=x, w=w, p=point: rmsnorm_cuda(x, w, p, lib=lib),
-                              lambda x=x, w=w, p=point: rmsnorm_plain(x, w, p)))
+                for la in (0, 1, 2):
+                    point = {"block_rows": rows, "lookahead": la}
+                    cases.append((f"{point} at {(N, d)} {dtype}",
+                                  lambda x=x, w=w, p=point: rmsnorm_cuda(x, w, p, lib=lib),
+                                  lambda x=x, w=w, p=point: rmsnorm_plain(x, w, p)))
         out[str(dtype).removeprefix("torch.")] = check_cases(
             f"rmsnorm {dtype}", cases, tol)
     return {"checks": sum(v["checks"] for v in out.values()),
@@ -704,14 +747,29 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
     x = torch.randn(M, K, generator=gen, device=dev)
     w = torch.randn(K, generator=gen, device=dev)
     rn_best = tuned.get("rmsnorm") or RN_DEFAULT
+    # device times from graph replays: an eager call's host cost is longer
+    # than the kernel at both shapes
     out["rmsnorm"] = {
-        "ms": time_ms(rmsnorm_cuda, x, w, RN_DEFAULT),
-        "tuned_ms": time_ms(rmsnorm_cuda, x, w, rn_best),
-        "plain_ms": time_ms(rmsnorm_plain, x, w, RN_DEFAULT),
-        "library_ms": time_ms(lambda: F.rms_norm(x, (K,), w, eps=1e-6)),
+        "ms": device_ms(rmsnorm_cuda, x, w, RN_DEFAULT),
+        "tuned_ms": device_ms(rmsnorm_cuda, x, w, rn_best),
+        "block_rows_8_ms": device_ms(rmsnorm_cuda, x, w, dict(RN_DEFAULT, block_rows=8)),
+        "plain_ms": device_ms(rmsnorm_plain, x, w, RN_DEFAULT),
+        "library_ms": device_ms(lambda: F.rms_norm(x, (K,), w, eps=1e-6)),
+        "eager_ms": time_ms(rmsnorm_cuda, x, w, RN_DEFAULT),
         "point": RN_DEFAULT, "tuned_point": rn_best, "shape": [M, K]}
     out["rmsnorm"]["bound_ms"], out["rmsnorm"]["bound_by"] = bound(
         4.0 * M * K, 4.0 * (2 * M * K + K))
+    # decode's shape: the step programs launch at RMSNORM_POINT (DEFAULT_POINT)
+    xd = x[:4].clone()
+    decode = {
+        "ms": device_ms(rmsnorm_cuda, xd, w, RN_DEFAULT),
+        "plain_ms": device_ms(rmsnorm_plain, xd, w, RN_DEFAULT),
+        "library_ms": device_ms(lambda: F.rms_norm(xd, (K,), w, eps=1e-6)),
+        "eager_ms": time_ms(rmsnorm_cuda, xd, w, RN_DEFAULT),
+        "library_eager_ms": time_ms(lambda: F.rms_norm(xd, (K,), w, eps=1e-6)),
+        "point": RN_DEFAULT, "shape": [4, K]}
+    decode["bound_ms"], decode["bound_by"] = bound(4.0 * 4 * K, 4.0 * (2 * 4 * K + K))
+    out["rmsnorm"].update({f"decode_{k}": v for k, v in decode.items()})
     for name, t in out.items():
         bounds = f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, fp32 CUDA cores; "
         bounds += f"{t['bound_ms'] / t['ms']:.3f} of it reached"
@@ -723,6 +781,69 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
               + ", ".join(f"{k} {v:.4f}" for k, v in t.items()
                           if k.endswith("_ms") and k not in
                           ("bound_ms", "bound_3xtf32_ms", "plain_ms", "library_ms")))
+    return out
+
+
+def time_euclid(rows, dev, gen) -> dict:
+    """euclid at each Table 3 input (M = 1024 centres), at DEFAULT_POINT and
+    at the point that served at the end of the O-AT run, beside the plain
+    version, cuBLAS's Spec-Ref (one fp32 product) and both bounds, and
+    the best point of a sweep of the card's space at simlarge. Without
+    Table 3's rows (``--only`` without ``table3``) the O-AT point is
+    DEFAULT_POINT."""
+    import torch
+
+    from repro_torch.bench.table3 import EUCLID_SIZES, M_CENTERS
+    from repro_torch.kernels.euclid import ops as euclid_ops
+    from repro_torch.kernels.euclid.euclid import euclid_cuda, euclid_plain
+
+    by = {r["input"]: r for r in rows or () if r["bench"] == "euclid"}
+    out = {}
+    for name, (N, D) in EUCLID_SIZES.items():
+        M = M_CENTERS
+        x = torch.randn(N, D, generator=gen, device=dev)
+        c = torch.randn(M, D, generator=gen, device=dev)
+        default = euclid_ops.DEFAULT_POINT
+        row = by.get(name)
+        oat = serving(row, default) if row else dict(default)
+        # device times from graph replays: at simsmall an eager call's
+        # host cost is longer than the kernel
+        t = {"default_ms": device_ms(euclid_cuda, x, c, default),
+             "oat_ms": device_ms(euclid_cuda, x, c, oat),
+             "plain_ms": device_ms(euclid_plain, x, c, default),
+             "library_ms": device_ms(euclid_ops.reference_simd(D), x, c),
+             "eager_ms": time_ms(euclid_cuda, x, c, oat),
+             "point": oat, "shape": [N, M, D]}
+        if row:
+            t["bsat_ms"] = device_ms(euclid_cuda, x, c, row["bsat_point"])
+            t["bsat_point"] = row["bsat_point"]
+        work = (2.0 * N * M * D, 4.0 * (N * D + M * D + N * M))
+        t["bound_ms"], t["bound_by"] = bound(*work)
+        t["bound_3xtf32_ms"] = bound(*work, tf32x3=True)[0]
+        if name == "simlarge":
+            # every instantiation and ring depth at order "nm", scratch 1
+            # (each launch is longer than its host cost here)
+            sweep = []
+            for p in euclid_ops.make_space(N, M, D, vmem_kb=lib_capacity_kb(dev),
+                                           hopper=True).iter_valid():
+                if p["order"] == "nm" and p["scratch"] == 1:
+                    sweep.append((time_ms(euclid_cuda, x, c, p, reps=5, warmup=1), p))
+            sweep.sort(key=lambda r: r[0])
+            t["sweep_points"] = len(sweep)
+            t["sweep_best_ms"], t["sweep_best_point"] = sweep[0]
+            t["sweep_median_ms"] = sweep[len(sweep) // 2][0]
+            print(f"euclid simlarge sweep of {len(sweep)} points: best "
+                  f"{sweep[0][0]:.4f} ms at {sweep[0][1]}, median "
+                  f"{t['sweep_median_ms']:.4f} ms; next: "
+                  + "; ".join(f"{ms:.4f} {p}" for ms, p in sweep[1:5]))
+        out[name] = t
+        print(f"euclid {name} {t['shape']}: O-AT point {t['oat_ms']:.4f} ms, "
+              f"DEFAULT_POINT {t['default_ms']:.4f} ms, cuBLAS Spec-Ref "
+              f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms fp32 CUDA cores ({t['bound_by']}), "
+              f"{t['bound_3xtf32_ms']:.4f} ms 3xTF32 tensor cores "
+              f"({t['bound_3xtf32_ms'] / t['oat_ms']:.3f} of it reached); O-AT point "
+              f"{oat}")
     return out
 
 
@@ -746,8 +867,7 @@ def main(argv=None) -> int:
                           str(ROOT / "build" / "repro_torch" / "triton-cache" / "default"))
     try:
         from repro_torch.bench import table3
-        from repro_torch.kernels.euclid import ops as euclid_ops
-        from repro_torch.kernels.euclid.euclid import euclid_cuda, euclid_plain
+        from repro_torch.kernels.euclid.euclid import euclid_cuda
         from repro_torch.kernels.lintra.lintra import lintra_plain, lintra_triton
         from repro_torch.kernels.lintra.ops import DEFAULT_POINT as LINTRA_DEFAULT
     except ImportError as e:
@@ -838,25 +958,21 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         save()
 
+    # -- 5. times at the main paths' shapes ---------------------------------
+    if "time" in only:
+        report["euclid_times"] = time_euclid(rows, dev, gen)
+        report["times"] = time_lm(libs, dev, gen, serve_report)
+        save()
+
     if only != set(PHASES):
         save()
         print(f"phases {sorted(only)} done; no verdict for a subset")
         return 0
 
-    # -- 5. times at the main paths' shapes ---------------------------------
     by = {(r["bench"], r["input"]): r for r in rows}
     er = by[("euclid", "simlarge")]
-    N, M, D = er["N"], er["M"], er["D"]
-    x = torch.randn(N, D, generator=gen, device=dev)
-    c = torch.randn(M, D, generator=gen, device=dev)
-    e_oat = serving(er, euclid_ops.DEFAULT_POINT)
-    simd = euclid_ops.reference_simd(D)
-    e = {"default_ms": time_ms(euclid_cuda, x, c, euclid_ops.DEFAULT_POINT),
-         "oat_ms": time_ms(euclid_cuda, x, c, e_oat),
-         "bsat_ms": time_ms(euclid_cuda, x, c, er["bsat_point"]),
-         "plain_ms": time_ms(euclid_plain, x, c, euclid_ops.DEFAULT_POINT),
-         "library_ms": time_ms(simd, x, c)}
-    e_bound, e_by = bound(2.0 * N * M * D, 4.0 * (N * D + M * D + N * M))
+    e = report["euclid_times"]["simlarge"]
+    N, M, D = e["shape"]
 
     lr = by[("lintra", "bigben")]
     H, W, B = lr["H"], lr["W"], lr["bands"]
@@ -873,8 +989,8 @@ def main(argv=None) -> int:
     l_bytes = 2.0 * H * W * B * 4 + 2.0 * B * 4
     l_bound, l_by = bound(2.0 * H * W * B, l_bytes)
     l2_bytes = torch.cuda.get_device_properties(dev).L2_cache_size
-    del x, c, img, xf
-    lm = report["times"] = time_lm(libs, dev, gen, serve_report)
+    del img, xf
+    lm = report["times"]
 
     checks = report["checks"]
     launches = report["main_path_launches"]
@@ -883,13 +999,15 @@ def main(argv=None) -> int:
         {"name": "euclid", "route": "cuda", "source": EUCLID_SRC,
          "replaces": EUCLID_TPU, "launches": launches["euclid"],
          "max_abs_err": e_check["max_abs_err"], "ms": e["oat_ms"],
-         "plain_ms": e["plain_ms"], "bound_ms": e_bound, "bound_by": e_by,
+         "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
          "library_ms": e["library_ms"], "default_ms": e["default_ms"],
-         "bsat_ms": e["bsat_ms"], "point": e_oat, "bsat_point": er["bsat_point"],
+         "bsat_ms": e["bsat_ms"], "bound_3xtf32_ms": e["bound_3xtf32_ms"],
+         "point": e["point"], "bsat_point": er["bsat_point"],
          "shape": [N, M, D], "checks": e_check["checks"],
          "tolerance": EUCLID_TOL, "tol_used": e_check["tol_used"],
          "tf32_control_max_abs_err": e_check["tf32_max_abs_err"],
-         "tf32_control_tol_used": e_check["tf32_tol_used"]},
+         "tf32_control_tol_used": e_check["tf32_tol_used"],
+         "by_input": report["euclid_times"]},
         {"name": "lintra", "route": "triton", "source": LINTRA_SRC,
          "replaces": LINTRA_TPU, "launches": launches["lintra"],
          "max_abs_err": checks["lintra"]["max_abs_err"], "ms": lt["oat_ms"],
@@ -916,6 +1034,9 @@ def main(argv=None) -> int:
                  "tolerance": tol, "tol_used": chk["tol_used"]}
         entry.update({k: v for k, v in t.items() if k.endswith("_ms")
                       and k not in entry})
+        if name == "rmsnorm":
+            entry["decode_shape"] = t["decode_shape"]
+            entry["launches_by_rows"] = serve_report["rmsnorm_launches_by_rows"]
         if "tf32_max_abs_err" in chk:
             entry["tf32_control_max_abs_err"] = chk["tf32_max_abs_err"]
             entry["tf32_control_tol_used"] = chk["tf32_tol_used"]

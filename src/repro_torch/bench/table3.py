@@ -152,9 +152,10 @@ def bench_euclid(size_name: str, n_points: int, dim: int, *,
                  max_points: int = 30,
                  device: "torch.device | str | None" = None) -> dict:
     dev = resolve_device(device)
-    build_s = 0.0
+    build_s = load_s = 0.0
     if dev.type == "cuda":
-        build_s = euclid.build_kernels(dev).build_s   # set-up, not timed
+        lib = euclid.build_kernels(dev)               # set-up, not timed
+        build_s, load_s = lib.build_s, lib.load_s
     x, c = to_torch(euclid_inputs(n_points, m_centers, dim, seed), dev)
     args = (x, c)
     ref = euclid.reference_sisd(dim)
@@ -179,7 +180,7 @@ def bench_euclid(size_name: str, n_points: int, dim: int, *,
         max_points=max_points)
     return _row("euclid", size_name, dev, calls, t_ref, t_spec, t_oat,
                 bs_score, stats, bs_point, launches, err, ok, out,
-                N=n_points, M=m_centers, D=dim, build_s=build_s)
+                N=n_points, M=m_centers, D=dim, build_s=build_s, load_s=load_s)
 
 
 def bench_lintra(size_name: str, hw: tuple[int, int], *, bands: int = BANDS,

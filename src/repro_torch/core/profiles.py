@@ -30,6 +30,7 @@ from the device by :func:`device_smem_kb`.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -189,3 +190,11 @@ def device_smem_kb(device: "torch.device | str | int | None" = None) -> int:
     """
     props = torch.cuda.get_device_properties(device)
     return int(props.shared_memory_per_block_optin) // 1024
+
+
+@functools.lru_cache(maxsize=None)
+def device_sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (132 on an H100):
+    the least grid that fills the card. Cached: kernel wrappers ask on
+    every launch."""
+    return int(torch.cuda.get_device_properties(index).multi_processor_count)

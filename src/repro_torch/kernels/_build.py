@@ -163,7 +163,8 @@ class KernelLibrary:
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         self._error_string = err
-        self._constants: dict[str, int] = {}
+        # seconds load_all took, once it has run
+        self.load_s: float | None = None
         self._fns: dict[str, ctypes._CFuncPtr] = {}
         for sym in self.symbols:
             fn = getattr(lib, sym)
@@ -180,16 +181,24 @@ class KernelLibrary:
                 f"the {len(self._fns)} points it was built for")
         return fn
 
-    def constant(self, name: str) -> int:
-        """An exported ``long long name(void)`` of the library (such as an
-        instantiation's shared-memory footprint), read once."""
-        value = self._constants.get(name)
-        if value is None:
-            fn = getattr(self.built.lib, name)
+    def load_all(self, suffix: str) -> float:
+        """Call every instantiation's exported ``<symbol><suffix>()`` (an
+        ``int`` status, 0 for success) and return the seconds it took,
+        also kept in ``.load_s``; a non-zero status raises. A family uses
+        it to load its kernels into the current CUDA context at set-up,
+        instead of at each one's first launch (CUDA loads them lazily by
+        default)."""
+        t0 = time.perf_counter()
+        for sym in self.symbols:
+            fn = getattr(self.built.lib, sym + suffix)
             fn.argtypes = []
-            fn.restype = ctypes.c_longlong
-            value = self._constants[name] = int(fn())
-        return value
+            fn.restype = ctypes.c_int
+            rc = fn()
+            if rc != 0:
+                raise RuntimeError(f"{sym}{suffix} failed: "
+                                   f"{self._error_string(int(rc)).decode()}")
+        self.load_s = time.perf_counter() - t0
+        return self.load_s
 
     def launch(self, symbol: str, *args) -> None:
         """Launch one instantiation; a refused launch raises."""

@@ -6,6 +6,8 @@
 //
 //   * tf32_split: x -> (big, small), big = tf32(x), small = tf32(x - big),
 //     both rounded to nearest, ties away (cvt.rna.tf32.f32);
+//   * tf32_split_trunc: the same split by truncation (the low 13 mantissa
+//     bits cleared), for finite x;
 //   * mma_tf32_m16n8k8: D += A(16x8) B(8x8), TF32 in, fp32 accumulators
 //     (mma.sync.aligned.m16n8k8.row.col), fragments in PTX's layout:
 //     with g = lane / 4 and q = lane % 4,
@@ -37,6 +39,17 @@ __device__ __forceinline__ uint32_t tf32_round(float x) {
 __device__ __forceinline__ void tf32_split(float x, uint32_t& big, uint32_t& small) {
   big = tf32_round(x);
   small = tf32_round(x - __uint_as_float(big));
+}
+
+// The split by truncation: two bit masks and one subtraction (x - big is
+// exact in fp32), where sm_90 runs each cvt.rna as a short sequence of
+// compares, adds and masks, about three times the instructions for the
+// pair. small*big + big*small + big*big then misses x*y by at most about
+// 3 * 2^-20 of |x*y|, against 3 * 2^-22 with rounding: far inside an fp32
+// check's limits (tests/test_torch_tf32.py). For finite x only.
+__device__ __forceinline__ void tf32_split_trunc(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void mma_tf32_m16n8k8(float d[4], const uint32_t a[4],

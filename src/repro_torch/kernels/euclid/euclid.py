@@ -8,17 +8,21 @@ the place of ``euclid_pallas``, with the same tuning point:
   block_m   — centers per block
   block_d   — d-chunk staged per loop step  (vectLen)
   unroll    — independent partial accumulators inside block_d (hotUF)
-  vectorize — 1: ||x||^2 + ||c||^2 - 2 x.c in fp32 FMA   (VE=SIMD)
-              0: diff-square-sum                          (VE=SISD)
-  order, scratch, lookahead — phase-2 codegen options (IS/SM/pld)
+  vectorize — 1: ||x||^2 + ||c||^2 - 2 x.c, x.c in 3xTF32 on the
+                 tensor cores                             (VE=SIMD)
+              0: diff-square-sum on the CUDA cores        (VE=SISD)
+  order, scratch — phase-2 codegen options (IS/SM)
+  lookahead — slices of x and c in flight ahead of the one computed (a
+              ring of lookahead + 1 shared-memory stages; pld)
 
 The kernel is CUDA C++ (``csrc/euclid.cuh``; its header comment is the
 design note: what it replaces, what bounds it, what the design does
 about that). The phase-1 knobs are template parameters, one
-instantiation per point of the tuning space, all built once into one
-shared library; ``order``, ``scratch`` and ``lookahead`` are run-time
-arguments (``lookahead`` is inert). Generating a variant is resolving
-its instantiation's symbol: microseconds, like deGoal's code generation.
+instantiation per point of the tuning space (and one kernel per ring
+depth under it), all built once into one shared library; ``order``,
+``scratch`` and ``lookahead`` are run-time arguments. Generating a
+variant is resolving its instantiation's symbol: microseconds, like
+deGoal's code generation.
 
 ``euclid_plain`` is the same function in plain PyTorch, chunk for chunk
 and partial for partial. The wrapper uses it only for tensors on the
@@ -35,6 +39,7 @@ from typing import Any, Sequence
 
 import torch
 
+from repro_torch.core.profiles import device_sm_count
 from repro_torch.kernels._build import KernelLibrary, load_family
 
 Point = dict[str, Any]
@@ -45,7 +50,17 @@ CSRC = Path(__file__).with_name("csrc")
 PHASE1 = ("block_n", "block_m", "block_d", "unroll", "vectorize")
 
 _ORDERS = {"nm": 0, "mn": 1}
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def smem_bytes(point: Point) -> int:
+    """Shared memory of one block at ``point`` (``euclid::stage_bytes``):
+    ``lookahead + 1`` ring stages, each a slice of the pass tile's x rows
+    (``min(block_n, 128)``) and c rows (``min(block_m, 64)``),
+    ``min(block_d, 64)`` deep, rows padded by 4 floats."""
+    rows = min(int(point["block_n"]), 128) + min(int(point["block_m"]), 64)
+    stage = 4 * rows * (min(int(point["block_d"]), 64) + 4)
+    return (int(point.get("lookahead", 1)) + 1) * stage
 
 
 def symbol(point: Point) -> str:
@@ -63,9 +78,10 @@ def instantiations(points: Sequence[tuple[int, ...]]) -> dict[str, str]:
 
 @functools.lru_cache(maxsize=None)
 def load_library(points: tuple[tuple[int, ...], ...], *,
-                 n_units: int = 8) -> KernelLibrary:
+                 n_units: int = 16) -> KernelLibrary:
     """Build (once per process and source hash) and load the instantiations
-    of ``points`` (phase-1 tuples in :data:`PHASE1` order). Memoised: the
+    of ``points`` (phase-1 tuples in :data:`PHASE1` order; each holds three
+    kernels, one per ring depth, so 16 units spread up to 648). Memoised: the
     wrapper calls it on every launch that is given no library, and
     listing the instantiations again would cost more host time than the
     kernel takes on the card."""
@@ -98,23 +114,18 @@ def euclid_cuda(x: torch.Tensor, c: torch.Tensor, point: Point, *,
     M = c.shape[0]
     if min(N, M, D) < 1 or max(N, M, D) >= 2**31:
         raise ValueError(f"unsupported shape N={N} M={M} D={D}")
+    lookahead = int(point.get("lookahead", 1))
+    if lookahead not in (0, 1, 2):
+        raise ValueError(f"lookahead {lookahead}: the kernel takes 0, 1 or 2")
     if lib is None:
         from repro_torch.kernels.euclid.ops import build_kernels
         lib = build_kernels(x.device)
-    name = symbol(point)
-    lib.resolve(name)
-    smem = lib.constant(name + "_smem")
-    cap = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
-    if smem > cap:
-        raise ValueError(
-            f"point {point} needs {smem} bytes of shared memory; the card "
-            f"allows {cap} per block")
     order = _ORDERS[point.get("order", "nm")]
     scratch = int(bool(point.get("scratch", 1)))
     out = torch.empty((N, M), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib.launch(name, x.data_ptr(), c.data_ptr(), out.data_ptr(), N, M, D, order,
-               scratch, stream)
+    lib.launch(symbol(point), x.data_ptr(), c.data_ptr(), out.data_ptr(), N, M, D,
+               order, scratch, lookahead, device_sm_count(x.device.index), stream)
     euclid_cuda.launches += 1
     return out
 

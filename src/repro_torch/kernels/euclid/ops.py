@@ -11,6 +11,15 @@ backends chosen by device:
 
 The analytical cost model drives the 11 simulated device profiles,
 unchanged.
+
+**Capacity rule.** At the reference's capacity (``vmem_kb`` of the TPU
+profile) the validator is the TPU kernel's VMEM footprint: the x, c and
+output blocks (the scratch accumulator, and for ``vectorize=0`` the diff
+cube). On a CUDA device (``hopper=True``) it checks what the Hopper
+kernel holds in shared memory: its ring of ``lookahead + 1`` stages, each
+a slice of the pass tile's x and c rows (:func:`~repro_torch.kernels.
+euclid.euclid.smem_bytes`, 7.5–153 kB), whatever the tile, since the tile
+is walked in passes and slices.
 """
 
 from __future__ import annotations
@@ -25,10 +34,11 @@ from repro_torch.core.compilette import Compilette
 from repro_torch.core.profiles import TPU_V5E, DeviceProfile, device_smem_kb
 from repro_torch.core.tuning_space import Param, Point, TuningSpace
 from repro_torch.interop import resolve_device
-from repro_torch.kernels.catalog import KernelDef, example_fill, spec_capacity_kb
+from repro_torch.kernels.catalog import (
+    KernelDef, example_fill, spec_capacity_kb, spec_on_cuda)
 from repro_torch.kernels._build import KernelLibrary
 from repro_torch.kernels.euclid.euclid import (
-    PHASE1, euclid_cuda, euclid_plain, load_library, symbol)
+    PHASE1, euclid_cuda, euclid_plain, load_library, smem_bytes, symbol)
 from repro_torch.kernels.euclid.ref import euclid_ref
 
 DEFAULT_POINT: Point = {
@@ -41,6 +51,7 @@ def make_space(
     N: int, M: int, D: int,
     *,
     vmem_kb: int = TPU_V5E.vmem_kb,
+    hopper: bool = False,
 ) -> TuningSpace:
     params = (
         Param("block_n", (64, 128, 256), phase=1, switch_rank=0),   # coldUF
@@ -61,6 +72,8 @@ def make_space(
             return False           # over-tiling the specialized dimension
         if p["block_n"] > N or p["block_m"] > M:
             return False
+        if hopper:
+            return smem_bytes(p) <= vmem_kb * 1024
         words = p["block_n"] * bd + p["block_m"] * bd + p["block_n"] * p["block_m"]
         if p["scratch"]:
             words += p["block_n"] * p["block_m"]
@@ -83,11 +96,12 @@ def make_space(
 # ------------------------------------------------------------ hand kernels
 @functools.lru_cache(maxsize=None)
 def kernel_points(vmem_kb: int) -> tuple[tuple[int, ...], ...]:
-    """Phase-1 tuples the space admits at capacity ``vmem_kb`` for any
-    shape: one CUDA instantiation each (at most 3*3*4*3*2 = 216).
-    Cached per capacity: the wrapper resolves its library on every call."""
+    """Phase-1 tuples the card's space (the Hopper rule at capacity
+    ``vmem_kb``) admits for any shape: one CUDA instantiation each (at
+    most 3*3*4*3*2 = 216). Cached per capacity: the wrapper resolves its
+    library on every call."""
     # at a shape larger than every block, only the capacity makes holes
-    space = make_space(1 << 20, 1 << 20, 1 << 20, vmem_kb=vmem_kb)
+    space = make_space(1 << 20, 1 << 20, 1 << 20, vmem_kb=vmem_kb, hopper=True)
     return tuple(sorted({tuple(p[k] for k in PHASE1) for p in space.iter_valid()}))
 
 
@@ -96,12 +110,20 @@ def build_kernels(device: "torch.device | str | None" = None) -> KernelLibrary:
 
     The capacity is the shared memory one block may use on ``device``.
     This is set-up: the first call runs nvcc (its seconds are in
-    ``.build_s``), later calls return the loaded library.
+    ``.build_s``) and loads every kernel into the device's context (its
+    seconds in ``.load_s``): CUDA would otherwise load each kernel at its
+    first launch, which online tuning would pay for every variant it
+    explores. Later calls return the loaded library. (A second card in
+    the same process loads its kernels lazily, as CUDA does by default.)
     """
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"the euclid kernel builds for a CUDA device, not {dev}")
-    return load_library(kernel_points(device_smem_kb(dev)))
+    lib = load_library(kernel_points(device_smem_kb(dev)))
+    if lib.load_s is None:
+        with torch.cuda.device(dev):
+            lib.load_all("_load")
+    return lib
 
 
 # --------------------------------------------------------------------- cost
@@ -181,15 +203,16 @@ def make_euclid_compilette(
 ) -> Compilette:
     """Compilette over the euclid space at ``N x M x D``.
 
-    On a CUDA ``device`` (the default) the space's capacity is the card's
-    shared memory per block and every variant is the hand kernel; on the
-    CPU it keeps the reference's ``TPU_V5E.vmem_kb`` and serves the plain
-    version.
+    On a CUDA ``device`` (the default) the space is sized by the Hopper
+    rule against the card's shared memory per block and every variant is
+    the hand kernel; on the CPU it keeps the reference's rule and
+    ``TPU_V5E.vmem_kb`` and serves the plain version.
     """
     dev = resolve_device(device)
+    on_cuda = dev.type == "cuda"
     if vmem_kb is None:
-        vmem_kb = device_smem_kb(dev) if dev.type == "cuda" else TPU_V5E.vmem_kb
-    space = make_space(N, M, D, vmem_kb=vmem_kb)
+        vmem_kb = device_smem_kb(dev) if on_cuda else TPU_V5E.vmem_kb
+    space = make_space(N, M, D, vmem_kb=vmem_kb, hopper=on_cuda)
 
     def generate(point: Point, **spec: Any):
         return _variant(point, dev)
@@ -253,7 +276,8 @@ def _example_args(spec: dict[str, Any]) -> tuple:
 KERNEL = KernelDef(
     name="euclid",
     make_space=lambda spec: make_space(
-        spec["N"], spec["M"], spec["D"], vmem_kb=spec_capacity_kb(spec)),
+        spec["N"], spec["M"], spec["D"], vmem_kb=spec_capacity_kb(spec),
+        hopper=spec_on_cuda(spec)),
     generate=_catalog_generate,
     cost_model=euclid_cost_model,
     extract_spec=_extract_spec,

@@ -8,11 +8,12 @@ CPU.
 **Capacity rule.** At the reference's capacity (``vmem_kb`` of the TPU
 profile) the validator is the TPU kernel's: the whole ``(rows, d)``
 block in and out of VMEM, ``2 * rows * d * 4`` bytes. On a CUDA device
-(``hopper=True``) it checks what the Hopper kernel holds on chip: rows
-stream through registers in two passes and nothing is staged in shared
-memory, so its footprint is 0 bytes whatever ``d`` (at deepseek-7b's
-d = 4096 the TPU rule would refuse every point against the H100's
-227 kB).
+(``hopper=True``) it checks what the Hopper kernel holds in shared
+memory: a ring of ``lookahead + 1`` row buffers and the weight, each
+``d`` elements (:func:`~repro_torch.kernels.rmsnorm.rmsnorm.smem_bytes`;
+48 kB at deepseek-7b's d = 4096 in fp32 and ``lookahead`` 1, where the
+TPU rule would refuse every point against the H100's 227 kB), whatever
+``block_rows``, since a block reduces one staged row at a time.
 """
 
 from __future__ import annotations
@@ -29,15 +30,9 @@ from repro_torch.kernels.catalog import (
     KernelDef, example_fill, spec_capacity_kb, spec_on_cuda, torch_dtype)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import (
-    build_kernels, rmsnorm_cuda, rmsnorm_plain, symbol)
+    build_kernels, rmsnorm_cuda, rmsnorm_plain, smem_bytes, symbol)
 
 DEFAULT_POINT: Point = {"block_rows": 128, "lookahead": 1}
-
-
-def hopper_smem_bytes(point: Point, d: int) -> int:
-    """Shared memory the Hopper kernel stages for ``point``: none."""
-    del point, d
-    return 0
 
 
 def make_space(N: int, d: int, *, vmem_kb: int = TPU_V5E.vmem_kb,
@@ -49,7 +44,8 @@ def make_space(N: int, d: int, *, vmem_kb: int = TPU_V5E.vmem_kb,
 
     def validator(p: Point) -> bool:
         if hopper:
-            return hopper_smem_bytes(p, d) <= vmem_kb * 1024
+            # fp32 rows: a bound for bfloat16 rows too, which take half
+            return smem_bytes(p, d) <= vmem_kb * 1024
         rows = min(p["block_rows"], N)
         return 2 * rows * d * 4 <= vmem_kb * 1024
 
@@ -129,6 +125,6 @@ KERNEL = KernelDef(
 )
 
 
-__all__ = ["DEFAULT_POINT", "KERNEL", "hopper_smem_bytes", "make_space",
+__all__ = ["DEFAULT_POINT", "KERNEL", "make_space",
            "rmsnorm_cost_model", "rmsnorm_cuda",
            "rmsnorm_plain", "rmsnorm_ref"]

@@ -1,14 +1,19 @@
-"""Fused RMSNorm kernel for Hopper (row-tiled, fp32 statistics).
+"""Fused RMSNorm kernel for Hopper (fp32 statistics, one read per element).
 
 Mirrors ``repro/kernels/rmsnorm/rmsnorm.py``: ``rmsnorm_cuda`` takes the
-place of ``rmsnorm_pallas``, with the same tuning point (``block_rows``
-— rows per block, the coldUF analogue; ``lookahead`` — inert).
+place of ``rmsnorm_pallas``, with the same tuning point:
+
+  block_rows — the most rows one block holds (the coldUF analogue); the
+               grid is never smaller than the blocks the card holds
+               resident (or N)
+  lookahead  — rows in flight ahead of the one reduced (a ring of
+               ``lookahead + 1`` shared-memory row buffers)
 
 The kernel is CUDA C++ (``csrc/rmsnorm.cuh``; its header comment is the
 design note: what it replaces, what bounds it, what the design does about
-that). ``block_rows`` is a template parameter, one instantiation per
-option and input type, all built once into one shared library; generating
-a variant resolves its symbol.
+that). Each ring depth and input type is a kernel of its own; the
+exported launcher of each ``block_rows`` option picks one, all built
+once into one shared library; generating a variant resolves its symbol.
 
 ``rmsnorm_plain`` is the same function in plain PyTorch. The wrapper uses
 it only for tensors on the CPU; on a CUDA tensor it launches the kernel
@@ -24,6 +29,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.profiles import device_sm_count
 from repro_torch.interop import resolve_device
 from repro_torch.kernels._build import KernelLibrary, load_family
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -40,7 +46,15 @@ _TYPES = {torch.float32: ("f32", "float"),
           torch.bfloat16: ("bf16", "__nv_bfloat16")}
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def smem_bytes(point: Point, d: int, dtype_bytes: int = 4) -> int:
+    """Shared memory of one block at ``point`` (``rmsnorm::smem_bytes``):
+    ``lookahead + 1`` ring buffers and the weight, each a row of ``d``
+    elements rounded up to 16 bytes, and 8 floats for the reduction."""
+    row = -(-d * dtype_bytes // 16) * 16
+    return (int(point.get("lookahead", 1)) + 2) * row + 8 * 4
 
 
 def symbol(point: Point, dtype: torch.dtype) -> str:
@@ -76,7 +90,8 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, point: Point, *,
 
     On CUDA tensors: checks the arguments, launches the instantiation for
     ``point`` on the current stream, checks the launch status and counts
-    the launch in ``rmsnorm_cuda.launches``. On CPU tensors: the plain
+    the launch in ``rmsnorm_cuda.launches`` (and, by its number of rows,
+    in ``rmsnorm_cuda.launches_by_rows``). On CPU tensors: the plain
     version.
     """
     if not x.is_cuda:
@@ -95,19 +110,24 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, point: Point, *,
     N, d = x.shape
     if min(N, d) < 1 or N * d >= 2**62 or d >= 2**31 or N >= 2**31:
         raise ValueError(f"unsupported shape N={N} d={d}")
+    lookahead = int(point.get("lookahead", 1))
+    if lookahead not in (0, 1, 2):
+        raise ValueError(f"lookahead {lookahead}: the kernel takes 0, 1 or 2")
     if lib is None:
         lib = build_kernels(x.device)
     out = torch.empty_like(x)
-    vec4 = int(x.dtype == torch.float32 and d % 4 == 0
-               and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib.launch(symbol(point, x.dtype), x.data_ptr(), w.data_ptr(),
-               out.data_ptr(), N, d, float(eps), vec4, stream)
+               out.data_ptr(), N, d, float(eps), lookahead,
+               device_sm_count(x.device.index), stream)
     rmsnorm_cuda.launches += 1
+    by_rows = rmsnorm_cuda.launches_by_rows
+    by_rows[N] = by_rows.get(N, 0) + 1
     return out
 
 
 rmsnorm_cuda.launches = 0
+rmsnorm_cuda.launches_by_rows = {}
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, point: Point, *,
@@ -122,4 +142,4 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, point: Point, *,
 
 
 __all__ = ["BLOCK_ROWS", "build_kernels", "instantiations", "rmsnorm_cuda",
-           "rmsnorm_plain", "symbol"]
+           "rmsnorm_plain", "smem_bytes", "symbol"]

@@ -8,7 +8,8 @@
 //
 // The Hopper primitives of src/repro_torch/kernels/_csrc/sm90.cuh have
 // host versions here, in the same namespace: tf32_split rounds to
-// nearest, ties away, on the low 13 mantissa bits; the m16n8k8 product
+// nearest, ties away, on the low 13 mantissa bits, tf32_split_trunc
+// clears them; the m16n8k8 product
 // gathers the warp's fragments through a per-warp exchange, in PTX's
 // documented fragment layout, so a kernel's fragment indexing is really
 // checked; cp.async copies (with zero-fill) are held per thread in commit
@@ -35,12 +36,14 @@
 #define __restrict__
 struct dim3_ { unsigned x = 0, y = 0, z = 0; };
 inline thread_local dim3_ threadIdx, blockIdx;
-inline dim3_ blockDim;
+inline dim3_ blockDim, gridDim;
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 using std::min; using std::max;
 inline float fmaxf(float a, float b) { return a > b ? a : b; }
 inline float rsqrtf(float a) { return 1.f / std::sqrt(a); }
@@ -79,6 +82,10 @@ inline uint32_t tf32_round(float x) {
 inline void tf32_split(float x, uint32_t& big, uint32_t& small) {
   big = tf32_round(x);
   small = tf32_round(x - __uint_as_float(big));
+}
+inline void tf32_split_trunc(float x, uint32_t& big, uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
 }
 inline void mma_tf32_m16n8k8(float d[4], const uint32_t a[4], const uint32_t b[2]) {
   const int t = threadIdx.x, w = t / 32, base = w * 32, lane = t % 32;
@@ -143,15 +150,24 @@ enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidC
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+struct cudaFuncAttributes { int maxThreadsPerBlock = 1024; };
+template <class F> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*, F) { return cudaSuccess; }
+// one resident block an SM: a test's `sms` argument is then its grid
+template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 struct __nv_bfloat16 { unsigned short v; };
 inline float __bfloat162float(__nv_bfloat16 b) { unsigned u = (unsigned)b.v << 16; float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
 inline __nv_bfloat16 __float2bfloat16(float f) { unsigned u; std::memcpy(&u, &f, 4); u += 0x7fff + ((u >> 16) & 1); return {(unsigned short)(u >> 16)}; }
 inline char* emu_dyn_smem;
 inline void emu_launch(unsigned grid, unsigned block, size_t smem, std::function<void()> body) {
   std::vector<char> dyn(smem + 64);
   emu_dyn_smem = dyn.data();
   blockDim.x = block;
+  gridDim.x = grid;
   for (unsigned b = 0; b < grid; ++b) {
     std::barrier<> bar((std::ptrdiff_t)block);
     g_block_barrier = &bar;

@@ -9,16 +9,18 @@ PyTorch versions. This checks the kernels' indexing, masking and
 synchronization in tier-1; what nvcc accepts and how fast the card runs
 them only ``chip_smoke.py`` shows.
 
-The matmul and attention kernels call the Hopper primitives of
-``kernels/_csrc/sm90.cuh``; the emulator supplies host versions of them
-(the TF32 split, the m16n8k8 product over the warp's fragments in PTX's
-layout, cp.async as a synchronous zero-filling copy). Their cases cover
-every ring depth (``lookahead`` 0, 1 and 2), row strides that are not a
-multiple of 4 floats (the 4-byte copies), misaligned k and v, and causal
-calls with ``q_offset``.
+Every kernel calls the Hopper primitives of ``kernels/_csrc/sm90.cuh``;
+the emulator supplies host versions of them (the TF32 split, the
+m16n8k8 product over the warp's fragments in PTX's layout, cp.async
+copies that land when their group is waited for). The cases cover every
+ring depth (``lookahead`` 0, 1 and 2), row strides that are not a
+multiple of 4 floats (the 4-byte copies), misaligned operands, causal
+attention with ``q_offset``, euclid's 4-deep sub-chunks and rmsnorm at
+decode's few rows.
 
 Tolerances: euclid rtol 2e-5, atol 1e-4 (the plain version's chunked
-sums, another order); matmul rtol 1e-5, atol 1e-4 (sums of K <= 300
+sums, another order; 3xTF32 products for vectorize=1, as for matmul);
+matmul rtol 1e-5, atol 1e-4 (sums of K <= 300
 products in another order; the 3xTF32 products drop small*small, about
 2^-22 of each product); attention rtol 1e-5, atol 1e-5 (online softmax
 over 32-key slices against the plain version's blocks, 3xTF32 products
@@ -55,6 +57,8 @@ EUCLID_POINTS = [
     dict(block_n=64, block_m=32, block_d=32, unroll=1, vectorize=1, order="nm", scratch=1),
     dict(block_n=128, block_m=64, block_d=16, unroll=2, vectorize=0, order="mn", scratch=0),
     dict(block_n=64, block_m=64, block_d=64, unroll=4, vectorize=1, order="mn", scratch=0),
+    dict(block_n=64, block_m=32, block_d=16, unroll=4, vectorize=1, order="nm", scratch=1),
+    dict(block_n=64, block_m=128, block_d=64, unroll=1, vectorize=1, order="mn", scratch=1),
 ]
 
 
@@ -183,9 +187,9 @@ def test_emulated_rmsnorm_matches_its_plain_version(emulated, N, d, dtype):
     for rows in trmsnorm.BLOCK_ROWS:
         point = {"block_rows": rows}
         out = torch.full_like(x, float("nan"))
-        vec4 = int(dtype == torch.float32 and d % 4 == 0)
+        # a 4-SM card: blocks of several rows at N = 100
         launch(emulated["rmsnorm"], trmsnorm.symbol(point, dtype), trmsnorm._ARGTYPES,
-               x.data_ptr(), w.data_ptr(), out.data_ptr(), N, d, 1e-6, vec4, None)
+               x.data_ptr(), w.data_ptr(), out.data_ptr(), N, d, 1e-6, 1, 4, None)
         torch.testing.assert_close(out.float(), trmsnorm.rmsnorm_plain(x, w, point).float(),
                                    rtol=tol, atol=tol)
 
@@ -200,9 +204,108 @@ def test_emulated_euclid_matches_its_plain_version(emulated, pi):
     out = torch.full((N, M), float("nan"))
     launch(emulated["euclid"], teuclid.symbol(point), teuclid._ARGTYPES,
            x.data_ptr(), c.data_ptr(), out.data_ptr(), N, M, D,
-           teuclid._ORDERS[point["order"]], point["scratch"], None)
+           teuclid._ORDERS[point["order"]], point["scratch"], 1, 132, None)
     torch.testing.assert_close(out, teuclid.euclid_plain(x, c, point),
                                rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("lookahead", [0, 1, 2])
+@pytest.mark.parametrize("D", [64, 70])
+def test_emulated_euclid_ring_depths_and_row_strides(emulated, D, lookahead):
+    """Every ring depth; D = 64 (16-byte copies) and D = 70 (rows of 280
+    bytes: the 4-byte copies); the two vectorize formulations and a
+    block_d 16, unroll 4 point, whose 4-deep sub-chunks run the k8 product
+    with a zero upper half. A 2-SM card: each block walks several tiles,
+    the ring running on across them."""
+    N, M = 90, 40
+    x, c = randn(N, D, seed=D + lookahead), randn(M, D, seed=D + lookahead + 10)
+    for point in (EUCLID_POINTS[(lookahead + D) % 3], EUCLID_POINTS[3]):
+        point = dict(point, lookahead=lookahead)
+        out = torch.full((N, M), float("nan"))
+        launch(emulated["euclid"], teuclid.symbol(point), teuclid._ARGTYPES,
+               x.data_ptr(), c.data_ptr(), out.data_ptr(), N, M, D,
+               teuclid._ORDERS[point["order"]], point["scratch"], lookahead, 2, None)
+        torch.testing.assert_close(out, teuclid.euclid_plain(x, c, point),
+                                   rtol=2e-5, atol=1e-4)
+
+
+def test_emulated_euclid_misaligned_operands(emulated):
+    """x and c one float past a 16-byte boundary take the 4-byte copies
+    even where D is a multiple of 4."""
+    N, M, D = 70, 50, 32
+    point = dict(EUCLID_POINTS[0], lookahead=2)
+    x = randn(N * D + 1, seed=7)[1:].view(N, D)
+    c = randn(M * D + 1, seed=8)[1:].view(M, D)
+    assert x.data_ptr() % 16 != 0 and c.data_ptr() % 16 != 0
+    out = torch.full((N, M), float("nan"))
+    launch(emulated["euclid"], teuclid.symbol(point), teuclid._ARGTYPES,
+           x.data_ptr(), c.data_ptr(), out.data_ptr(), N, M, D,
+           teuclid._ORDERS[point["order"]], point["scratch"], 2, 3, None)
+    torch.testing.assert_close(out, teuclid.euclid_plain(x, c, point),
+                               rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("lookahead", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_emulated_rmsnorm_decode_shapes_and_ring_depths(emulated, dtype, lookahead):
+    """Decode-like shapes, one row or four (a block a row), a ragged d (the
+    element copies) and several rows a block (N = 37 on a 4-SM card: the
+    ring wraps), at every ring depth."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for N, d in ((1, 256), (4, 256), (4, 33), (37, 40)):
+        x = randn(N, d, seed=N + d).to(dtype)
+        w = randn(d, seed=d + 1).to(dtype)
+        for rows in (8, 512):
+            point = {"block_rows": rows, "lookahead": lookahead}
+            out = torch.full_like(x, float("nan"))
+            launch(emulated["rmsnorm"], trmsnorm.symbol(point, dtype), trmsnorm._ARGTYPES,
+                   x.data_ptr(), w.data_ptr(), out.data_ptr(), N, d, 1e-6, lookahead, 4,
+                   None)
+            torch.testing.assert_close(
+                out.float(), trmsnorm.rmsnorm_plain(x, w, point).float(),
+                rtol=tol, atol=tol)
+
+
+def test_emulated_truncating_split_is_the_bit_model(emulated, tmp_path):
+    """The host version of ``sm90::tf32_split_trunc`` (which euclid's
+    fragments go through) against the bit model of
+    ``tests/test_torch_tf32.py``: big clears x's low 13 mantissa bits,
+    small clears those of x - big."""
+    (tmp_path / "cuda_emulator.h").write_text(
+        Path(__file__).with_name("cuda_emulator.h").read_text())
+    unit = tmp_path / "split.cpp"
+    unit.write_text('#include "cuda_emulator.h"\n'
+                    'extern "C" void split(const float* x, uint32_t* big, uint32_t* small, '
+                    'int n) {\n  for (int i = 0; i < n; ++i) '
+                    'sm90::tf32_split_trunc(x[i], big[i], small[i]);\n}\n')
+    cxx = shutil.which("g++") or shutil.which("c++")
+    subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-w",
+                    str(unit), "-o", str(tmp_path / "libsplit.so")], check=True)
+    lib = ctypes.CDLL(str(tmp_path / "libsplit.so"))
+    x = randn(4096, seed=3)
+    big = torch.empty(4096, dtype=torch.int32)
+    small = torch.empty(4096, dtype=torch.int32)
+    lib.split.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.split(x.data_ptr(), big.data_ptr(), small.data_ptr(), 4096)
+    want_big = x.view(torch.int32) & -8192
+    want_small = (x - want_big.view(torch.float32)).view(torch.int32) & -8192
+    assert torch.equal(big, want_big) and torch.equal(small, want_small)
+
+
+def test_emulated_shared_memory_footprints_match_the_python_counts(emulated):
+    """The footprints the capacity rules count (``smem_bytes`` in Python)
+    are the kernels' own, read from their exported ``_smem`` functions."""
+    for point in EUCLID_POINTS:
+        fn = getattr(emulated["euclid"], teuclid.symbol(point) + "_smem")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+        for la in (0, 1, 2):
+            assert fn(la) == teuclid.smem_bytes(dict(point, lookahead=la))
+    for dtype, size in ((torch.float32, 4), (torch.bfloat16, 2)):
+        fn = getattr(emulated["rmsnorm"], trmsnorm.symbol({"block_rows": 8}, dtype) + "_smem")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+        for d in (1, 33, 1001, 4096):
+            for la in (0, 1, 2):
+                assert fn(d, la) == trmsnorm.smem_bytes({"lookahead": la}, d, size)
 
 
 @pytest.mark.parametrize("lookahead,aligned", [(0, True), (1, True), (2, True), (1, False)])

@@ -145,9 +145,10 @@ def test_euclid_instantiations_cover_the_card_space():
     points = teuclid.kernel_points(227)
     assert 0 < len(points) <= 3 * 3 * 4 * 3 * 2
     for shape in [(16384, 1024, 128), (4096, 1024, 32), (1000, 1000, 70)]:
-        space = teuclid.make_space(*shape, vmem_kb=227)
-        for p in space.iter_valid():
-            assert tuple(p[k] for k in teuclid_kernel.PHASE1) in points
+        for hopper in (False, True):
+            space = teuclid.make_space(*shape, vmem_kb=227, hopper=hopper)
+            for p in space.iter_valid():
+                assert tuple(p[k] for k in teuclid_kernel.PHASE1) in points
     lines = list(teuclid_kernel.instantiations(points).values())
     units = instantiation_units("euclid", "euclid.cuh", lines, 8)
     text = "".join(units.values())
@@ -158,14 +159,22 @@ def test_euclid_instantiations_cover_the_card_space():
 
 
 def test_euclid_smem_fits_what_the_validator_counts():
-    """The kernel's shared memory (csrc/euclid.cuh, Tile::kSmemFloats) is
-    never more than the footprint the space's validator admits."""
-    for bn, bm, bd, u, v in teuclid.kernel_points(227):
-        smem = bd * (bn + 4) + bd * (bm + 4) + v * u * (bn + bm)
-        counted = bn * bd + bm * bd + bn * bm
-        if not v:
-            counted += bn * bm * (bd // u)
-        assert smem <= counted
+    """The kernel's shared memory (csrc/euclid.cuh, ``stage_bytes`` times
+    the ring's ``lookahead + 1`` stages; the emulation tests hold the
+    Python count to the kernel's own) is what the space's Hopper rule
+    counts: every built point fits the card at every ring depth, and at a
+    capacity one kB short of a point's footprint the rule refuses it."""
+    shape = (16384, 1024, 128)
+    for tup in teuclid.kernel_points(227):
+        base = dict(zip(teuclid_kernel.PHASE1, tup), order="nm", scratch=1)
+        for la in (0, 1, 2):
+            point = dict(base, lookahead=la)
+            need = teuclid_kernel.smem_bytes(point)
+            assert 7 * 1024 < need <= 153 * 1024
+            fits = -(-need // 1024)
+            assert teuclid.make_space(*shape, vmem_kb=fits, hopper=True).is_valid(point)
+            assert not teuclid.make_space(*shape, vmem_kb=fits - 1,
+                                          hopper=True).is_valid(point)
 
 
 def test_euclid_catalog_spec_and_space():

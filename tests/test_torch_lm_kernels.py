@@ -261,21 +261,40 @@ def test_library_lookup_is_memoised(family, monkeypatch):
         lookup.cache_clear()
 
 
-@pytest.mark.parametrize("family", ["matmul", "attention"])
+@pytest.mark.parametrize("family", ["matmul", "attention", "rmsnorm", "euclid"])
 def test_hopper_capacity_rule_counts_the_ring_at_the_points_lookahead(family):
     """The Hopper rule counts ``lookahead + 1`` ring stages: at a capacity
     between the shallowest and the deepest ring, points differ only in
     ``lookahead`` and the deeper ones are refused."""
+    from repro_torch.kernels.euclid import euclid as teuclid_kernel
+    from repro_torch.kernels.euclid import ops as teuclid
+
     if family == "matmul":
-        kernel, space_at = tmatmul_kernel, lambda kb: tmatmul.make_space(
+        footprint, most = tmatmul_kernel.smem_bytes, tmatmul_kernel.SMEM_BYTES
+        space_at = lambda kb: tmatmul.make_space(  # noqa: E731
             2048, 11008, 4096, vmem_kb=kb, hopper=True)
         point = dict(tmatmul.DEFAULT_POINT)
-    else:
-        kernel, space_at = tattn_kernel, lambda kb: tattn.make_space(
+    elif family == "attention":
+        footprint, most = tattn_kernel.smem_bytes, tattn_kernel.SMEM_BYTES
+        space_at = lambda kb: tattn.make_space(  # noqa: E731
             512, 512, 128, vmem_kb=kb, hopper=True)
         point = dict(tattn.DEFAULT_POINT)
-    sizes = [kernel.smem_bytes(dict(point, lookahead=la)) for la in (0, 1, 2)]
-    assert sizes[0] < sizes[1] < sizes[2] <= kernel.SMEM_BYTES <= H100_SMEM_KB * 1024
+    elif family == "rmsnorm":
+        # deepseek-7b's rows, fp32: a 16 kB row buffer a stage
+        footprint = lambda p: trmsnorm_kernel.smem_bytes(p, 4096)  # noqa: E731
+        most = trmsnorm_kernel.smem_bytes({"lookahead": 2}, 4096)
+        space_at = lambda kb: trmsnorm.make_space(  # noqa: E731
+            2048, 4096, vmem_kb=kb, hopper=True)
+        point = dict(trmsnorm.DEFAULT_POINT)
+    else:
+        footprint = teuclid_kernel.smem_bytes
+        most = footprint({"block_n": 256, "block_m": 128, "block_d": 128,
+                          "lookahead": 2})
+        space_at = lambda kb: teuclid.make_space(  # noqa: E731
+            16384, 1024, 128, vmem_kb=kb, hopper=True)
+        point = dict(teuclid.DEFAULT_POINT)
+    sizes = [footprint(dict(point, lookahead=la)) for la in (0, 1, 2)]
+    assert sizes[0] < sizes[1] < sizes[2] <= most <= H100_SMEM_KB * 1024
     cap_kb = sizes[1] // 1024 + 1          # room for two stages, not three
     space = space_at(cap_kb)
     assert [space.is_valid(dict(point, lookahead=la)) for la in (0, 1, 2)] == \
