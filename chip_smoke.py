@@ -15,26 +15,37 @@ the kernels' launch counts set to 0 just before and read just after:
    repro_torch.launch.serve --arch deepseek-7b --autotune --kernel-tuning
    kernel --batch 4 --prompt-len 512 --tokens 32 --requests 2`` at
    deepseek-7b's full width and depth (random weights from a seed),
-   running the matmul, rmsnorm and flash-attention CUDA C++ kernels.
+   running the matmul, rmsnorm and flash-attention CUDA C++ kernels;
+3. LM training — ``repro_torch.runtime.train_loop.train`` on deepseek-7b
+   at full width, cut to 2 of its 30 layers (the fp32 AdamW state of all
+   30 does not fit the card), B = 4, T = 512, with ``--autotune
+   --kernel-tuning both``: 12 steps with a checkpoint at step 12, then a
+   second run to step 14 that must resume there with a warm-started
+   registry. The step's forward launches the rmsnorm and flash-attention
+   kernels through their autograd Functions (again in each block's
+   recompute); the handles' evaluations launch all three.
 
 Then it holds each kernel against its plain PyTorch version (every
 instantiation at every ring depth at ragged shapes, a few points at the
 main path's shapes, with limits a TF32 product fails, and a TF32 control
 that shows it), compares the served model's prefill logits with the
-plain versions on the CPU at full width and 2 layers, and times each
-kernel beside its bound, its plain version and one PyTorch library call
-(euclid at each Table 3 input; rmsnorm at prefill's and decode's
-shapes). It prints one ``kernels`` JSON line and, last, ``{"ok": true,
+plain versions on the CPU at full width and 2 layers (and the training
+loss's gradient of every parameter the same way), holds the gradients of
+the rmsnorm and attention Functions against autograd through their
+plain versions, and times each kernel beside its bound, its plain
+version and one PyTorch library call (euclid at each Table 3 input;
+rmsnorm at prefill's and decode's shapes). It prints one ``kernels`` JSON line and, last, ``{"ok": true,
 "device": {...}}``.
 A profiler trace of one prefill and a few decode steps at full width
 says where the serving time goes (device busy share, kernels by device
-time).
+time), and one of 3 training steps where the training time goes, the
+forward, the backward and the update apart.
 
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. Full results go to
 ``chiprun_out/chip_smoke.json``. ``--only build,check`` (any of
 ``build``, ``table3``, ``serve``, ``profile``, ``check``, ``logits``,
-``time``) runs a subset and prints no verdict: a quick look at a new
+``train``, ``time``) runs a subset and prints no verdict: a quick look at a new
 kernel (``--only build,check,time`` times the kernels at DEFAULT_POINT
 where Table 3 has not run).
 """
@@ -43,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -75,7 +87,10 @@ ATTENTION_TPU = "src/repro/kernels/attention/attention.py:112"
 SERVE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel",
               "--batch", "4", "--prompt-len", "512", "--tokens", "32",
               "--requests", "2"]
-PHASES = ("build", "table3", "serve", "profile", "check", "logits", "time")
+PHASES = ("build", "table3", "serve", "profile", "check", "logits", "train", "time")
+#: the training path: deepseek-7b at full width cut to 2 layers, B 4, T 512
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 512
+TRAIN_STEPS, TRAIN_RESUME_STEPS = 12, 14
 
 #: limits of the kernels against their plain versions. euclid's is far
 #: tighter than its KernelDef.tolerance (rtol 1e-3): a sound fp32 kernel
@@ -95,6 +110,11 @@ MATMUL_TOL = {"rtol": 2e-5, "atol": 1e-3}
 ATTENTION_TOL = {"rtol": 1e-5, "atol": 1e-5}
 RMSNORM_TOL = {"rtol": 1e-5, "atol": 1e-5}
 RMSNORM_BF16_TOL = {"rtol": 1e-2, "atol": 1e-2}
+#: the whole model's gradients, card (hand kernels, cuBLAS fp32) against
+#: CPU (plain versions), relative L2 error per parameter leaf: fp32 on
+#: both sides, sums in other orders (about 1e-6); a TF32 product keeps
+#: about three digits and would read about 1e-3
+GRAD_REL_L2 = 1e-4
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -690,6 +710,370 @@ def check_logits(dev) -> dict:
             "launches": launched}
 
 
+def check_rmsnorm_grad(dev, gen) -> dict:
+    """``RMSNormFunction`` (the kernel's forward, a plain backward)
+    against autograd through ``rmsnorm_plain``: dx and dw at prefill's
+    and decode's shapes and a ragged one, fp32 at RMSNORM_TOL, bf16 at
+    RMSNORM_BF16_TOL."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm.rmsnorm import (
+        DEFAULT_POINT, RMSNormFunction, rmsnorm_plain)
+
+    out = {}
+    for dtype, tol in ((torch.float32, RMSNORM_TOL), (torch.bfloat16, RMSNORM_BF16_TOL)):
+        cases = []
+        for N, d in ((2048, 4096), (4, 4096), (1000, 1000)):
+            x = torch.randn(N, d, generator=gen, device=dev).to(dtype)
+            w = torch.randn(d, generator=gen, device=dev).to(dtype)
+            g = torch.randn(N, d, generator=gen, device=dev).to(dtype)
+
+            def grads(fn, x=x, w=w, g=g):
+                xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+                return torch.autograd.grad(fn(xr, wr), (xr, wr), g)
+
+            got = grads(lambda x, w: RMSNormFunction.apply(x, w, 1e-6))
+            want = grads(lambda x, w: rmsnorm_plain(x, w, DEFAULT_POINT))
+            for name, i in (("dx", 0), ("dw", 1)):
+                cases.append((f"{name} at {(N, d)} {dtype}",
+                              lambda a=got[i]: a, lambda b=want[i]: b))
+        out[str(dtype).removeprefix("torch.")] = check_cases(
+            f"rmsnorm gradient {dtype}", cases, tol)
+    return {"checks": sum(v["checks"] for v in out.values()),
+            "max_abs_err": out["float32"]["max_abs_err"],
+            "tol_used": out["float32"]["tol_used"], "by_type": out}
+
+
+def check_attention_grad_wiring(dev, gen) -> dict:
+    """A wiring check, not a check of the kernel: ``FlashAttentionFunction``
+    against autograd through ``flash_attention_plain`` at the same point,
+    dq, dk, dv at ATTENTION_TOL, at the training shape, a ragged T and
+    GQA, with blocks below the smallest instantiation among them. The
+    Function's backward is that same plain recompute, so the two agree
+    exactly unless the gradients come back in the wrong order or GQA's
+    head groups are summed wrongly; the kernel's own evidence in
+    training is its forward checks and ``check_model_grads``."""
+    import torch
+
+    from repro_torch.kernels.attention.attention import (
+        FlashAttentionFunction, flash_attention_plain)
+
+    cases = []
+    for (B, T, H, Hk), point in (
+            ((4, 512, 32, 32), {"block_q": 512, "block_kv": 512}),
+            ((4, 512, 32, 32), {"block_q": 64, "block_kv": 64}),
+            ((2, 200, 8, 2), {"block_q": 128, "block_kv": 64}),
+            ((2, 512, 32, 8), {"block_q": 256, "block_kv": 128})):
+        q = torch.randn(B, T, H, 128, generator=gen, device=dev)
+        k = torch.randn(B, T, Hk, 128, generator=gen, device=dev)
+        v = torch.randn(B, T, Hk, 128, generator=gen, device=dev)
+        g = torch.randn(B, T, H, 128, generator=gen, device=dev)
+
+        def grads(fn, q=q, k=k, v=v, g=g):
+            qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+            return torch.autograd.grad(fn(qr, kr, vr), (qr, kr, vr), g)
+
+        got = grads(lambda q, k, v, p=point: FlashAttentionFunction.apply(q, k, v, p))
+        want = grads(lambda q, k, v, p=point: flash_attention_plain(q, k, v, p))
+        for i, name in enumerate(("dq", "dk", "dv")):
+            cases.append((f"{name} {point} at {(B, T, H, Hk)}",
+                          lambda a=got[i]: a, lambda b=want[i]: b))
+    return check_cases("attention gradient wiring", cases, ATTENTION_TOL)
+
+
+def check_model_grads(dev) -> dict:
+    """The training loss and the gradient of every parameter at full
+    width, 2 layers, B 1, T 128: the hand kernels on the card against the
+    plain versions on the CPU, same params and tokens. Fails beyond
+    GRAD_REL_L2, and where a leaf's gradient is missing or zero on the
+    card but not on the CPU.
+
+    Then one AdamW update (the train loop's optimizer settings, step 1)
+    from those params, per leaf against GRAD_REL_L2: the card's update of
+    its own gradients against the CPU's update of the same gradients (the
+    optimizer alone, relative L2 of the change it makes), and the card's
+    new params against the CPU's from the CPU's gradients (the whole
+    step). The whole step's change itself is reported but not held to a
+    limit: the first AdamW step moves an element by about lr * sign(g),
+    so an element whose gradient lies within the two sides' rounding of
+    zero may move the other way."""
+    import torch
+
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_tree
+    from repro_torch.optim.adamw import AdamW, OptimizerConfig
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=TRAIN_LAYERS)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    cpu_params = init_tree(model.param_defs(), torch.Generator().manual_seed(1))
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (1, 129), generator=gen)
+    names = list(_flatten(cpu_params))            # in tree_leaves' order
+
+    def loss_and_grads(params, device):
+        batch = {"tokens": tokens[:, :-1].to(device), "labels": tokens[:, 1:].to(device)}
+        leaves = [p.requires_grad_() for p in tree_leaves(params)]
+        loss = model.loss(params, batch)
+        return loss.item(), list(torch.autograd.grad(loss, leaves, allow_unused=True))
+
+    card_params = to_device(cpu_params, dev)
+    reset_lm_counts()
+    got_loss, card_grads = loss_and_grads(card_params, dev)
+    launched = lm_counts()
+    got = [None if g is None else g.float().cpu() for g in card_grads]
+    want_loss, want = loss_and_grads(cpu_params, "cpu")
+    rel, faults = {}, []
+    for name, g, w in zip(names, got, want):
+        # every leaf of the dense model has a nonzero gradient on the CPU
+        if g is None or not bool(g.any()):
+            faults.append(name)
+            continue
+        rel[name] = float((g - w).norm() / w.norm())
+    if faults:
+        fail(f"training gradients missing or zero on the card, not on the CPU: {faults}")
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    print(f"training gradients at full width, {TRAIN_LAYERS} layers, B 1, T 128: hand "
+          f"kernels on the card against plain versions on the CPU, loss {got_loss:.6f} "
+          f"vs {want_loss:.6f}; {len(rel)} leaves, worst relative L2 error "
+          f"{rel[worst]:.3e} ({worst}) against {GRAD_REL_L2}; kernel launches "
+          f"{launched}; {time.perf_counter() - t0:.1f} s")
+    if rel[worst] > GRAD_REL_L2 or loss_rel > GRAD_REL_L2:
+        fail(f"training gradients beyond {GRAD_REL_L2}: {rel}; loss {loss_rel:.3e}")
+    if launched["rmsnorm"] == 0 or launched["flash_attention"] == 0:
+        fail(f"the training loss did not launch the rmsnorm and attention kernels: "
+             f"{launched}")
+
+    t0 = time.perf_counter()
+    opt = AdamW(OptimizerConfig(warmup_steps=10, total_steps=TRAIN_STEPS))
+    old = [p.detach() for p in tree_leaves(cpu_params)]
+
+    def updated(params, grads):
+        """The params after one update from a fresh state, on the CPU."""
+        with torch.no_grad():
+            params = tree_unflatten(params, [p.detach() for p in tree_leaves(params)])
+            new, _, _ = opt.update(tree_unflatten(params, grads), opt.init(params), params)
+        return [p.cpu() for p in tree_leaves(new)]
+
+    def rel_l2(a, b, base=None):
+        """Per leaf ||a - b|| / ||b||, of the changes from ``base`` if given
+        (fp32 differences of nearby values are exact)."""
+        out = {}
+        for i, n in enumerate(names):
+            x, y = (a[i], b[i]) if base is None else (a[i] - base[i], b[i] - base[i])
+            out[n] = float((x - y).norm() / y.norm())
+        return out
+
+    card_new = updated(card_params, card_grads)
+    del card_params, card_grads
+    torch.cuda.empty_cache()
+    cpu_new = updated(cpu_params, got)          # the CPU's update of the card's gradients
+    opt_rel = rel_l2(card_new, cpu_new, old)
+    del cpu_new
+    step_new = updated(cpu_params, want)        # the whole step on the CPU
+    param_rel = rel_l2(card_new, step_new)
+    step_update_rel = rel_l2(card_new, step_new, old)
+    del card_new, step_new
+    opt_worst = max(opt_rel, key=opt_rel.get)
+    param_worst = max(param_rel, key=param_rel.get)
+    print(f"one AdamW update: the card's against the CPU's on the card's gradients, "
+          f"worst relative L2 of the change {opt_rel[opt_worst]:.3e} ({opt_worst}); "
+          f"the whole step's new params, worst relative L2 {param_rel[param_worst]:.3e} "
+          f"({param_worst}), both against {GRAD_REL_L2}; the whole step's change, "
+          f"worst {max(step_update_rel.values()):.3e} (no limit); "
+          f"{time.perf_counter() - t0:.1f} s")
+    if opt_rel[opt_worst] > GRAD_REL_L2 or param_rel[param_worst] > GRAD_REL_L2:
+        fail(f"the AdamW update on the card departs from the CPU's beyond "
+             f"{GRAD_REL_L2}: optimizer {opt_rel}; whole step {param_rel}")
+    return {"loss": got_loss, "cpu_loss": want_loss, "loss_rel_err": loss_rel,
+            "rel_l2": rel, "worst_leaf": worst, "limit": GRAD_REL_L2,
+            "launches": launched, "update_rel_l2": opt_rel,
+            "step_param_rel_l2": param_rel, "step_update_rel_l2": step_update_rel}
+
+
+def run_train(dev) -> dict:
+    """The training path: ``train()`` at full width, cut to 2 layers,
+    with online tuning of the step and its kernels, then a resumed run.
+    The checkpoints go to a temporary directory inside the checkout's
+    build directory, removed at the end."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.api import train_tuning_defaults
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.runtime.train_loop import TrainLoopConfig, train
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("chip_smoke", "train", TRAIN_SEQ, TRAIN_BATCH)
+    tuning = dataclasses.replace(train_tuning_defaults(), enabled=True,
+                                 kernel_tuning="both")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train.", dir=build)
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "of_layers": get_config("deepseek-7b").n_layers,
+                      "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                      "d_head": cfg.d_head, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                      "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": cfg.remat,
+                      "params": cfg.n_params(), "dtype": str(cfg.param_dtype)},
+           "disk_free_gb": shutil.disk_usage(build).free / 1e9}
+    try:
+        runs = []
+        for steps in (TRAIN_STEPS, TRAIN_RESUME_STEPS):
+            loop = TrainLoopConfig(steps=steps, ckpt_every=TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                                   tuning=dataclasses.replace(tuning))
+            # what an earlier run left for the cycle collector (its tuning
+            # session's closures hold the state they measured on)
+            left = {"before_gc_gb": torch.cuda.memory_allocated(dev) / 1e9}
+            gc.collect()
+            torch.cuda.empty_cache()
+            left["after_gc_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_lm_counts()
+            t0 = time.perf_counter()
+            res = train(cfg, shape, loop, device=dev)
+            res["seconds"] = time.perf_counter() - t0
+            res["launches"] = lm_counts()
+            res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            res["allocated_at_start"] = left
+            runs.append(res)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    first, resumed = runs
+    for name, res in (("first", first), ("resumed", resumed)):
+        steps_s = res["step_s"]
+        a = res["autotune"]
+        res["median_step_s"] = sorted(steps_s)[len(steps_s) // 2]
+        res["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / res["median_step_s"]
+        kernels = {n: {"regenerations": k["regenerations"], "explored": k["n_explored"],
+                       "best_point": k["best_point"], "warm_started": k["warm_started"]}
+                   for n, k in sorted(res["coordinator"]["kernels"].items())}
+        res["kernels"] = kernels
+        print(f"train {name}: steps {res['start_step']} -> {res['steps']} in "
+              f"{res['seconds']:.1f} s; median step {res['median_step_s']:.4f} s "
+              f"({res['tokens_per_s']:.0f} tokens/s); loss {res['first_loss']:.4f} -> "
+              f"{res['final_loss']:.4f}; step program: {a['n_explored']} explored, "
+              f"serving {a['active_point']}, warm-started {a['warm_started']}; "
+              f"overhead {100 * res['coordinator']['overhead_frac']:.2f}%; "
+              f"launches {res['launches']}; peak memory "
+              f"{res['max_memory_allocated_gb']:.2f} GB (allocated at the start "
+              f"{res['allocated_at_start']}); checkpoint save s "
+              f"{[round(t, 2) for t in res['ckpt_save_s']]}, restore s "
+              f"{res['ckpt_restore_s']}")
+        print(f"  handles: {kernels}")
+    if first["steps"] != TRAIN_STEPS or first["start_step"] != 0:
+        fail(f"the first training run ran {first['start_step']} -> {first['steps']}")
+    if resumed["start_step"] != TRAIN_STEPS or resumed["steps"] != TRAIN_RESUME_STEPS:
+        fail(f"the resumed run ran {resumed['start_step']} -> {resumed['steps']}, "
+             f"not {TRAIN_STEPS} -> {TRAIN_RESUME_STEPS}")
+    if not resumed["autotune"]["warm_started"]:
+        fail("the resumed run's step program did not warm-start from tuned.json")
+    losses = first["losses"] + resumed["losses"]
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), losses)):
+        fail(f"non-finite training losses {losses}")
+    for name, n in first["launches"].items():
+        if n == 0:
+            fail(f"the training path never launched the {name} kernel")
+    for res in runs:
+        if res["coordinator"]["quarantined"]:
+            fail(f"variants were quarantined in training: {res['coordinator']}")
+    for res in runs:
+        res.pop("coordinator")
+    out["runs"] = runs
+    return out
+
+
+def profile_train(dev, point: dict, steps: int = 3) -> dict:
+    """Where a training step's time goes: ``steps`` steps of the train
+    loop's step program (``train_loop._make_step``) at the training
+    path's shapes and the attention chunks ``point`` that the tuned run
+    served, after one untraced warm-up step, under ``torch.profiler``
+    (no tuning session). The step marks its forward, its backward (with
+    each block's recompute) and its update, and under the profiler each
+    mark ends in a device sync, so a kernel belongs to the mark whose
+    host interval holds its start; busy share = the traced kernels' time
+    over the traced steps' host interval."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import batches_for, device_put_batch
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_tree
+    from repro_torch.optim.adamw import AdamW, OptimizerConfig
+    from repro_torch.runtime.train_loop import _make_step
+
+    cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=TRAIN_LAYERS,
+                              **(point or {}))
+    model = build_model(cfg)
+    params = init_tree(model.param_defs(), torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    opt = AdamW(OptimizerConfig(warmup_steps=10, total_steps=100))
+    state = opt.init(params)
+    stream = batches_for(cfg, ShapeSpec("profile", "train", TRAIN_SEQ, TRAIN_BATCH))
+    batches = [device_put_batch(next(stream), dev) for _ in range(steps + 1)]
+    train_step = _make_step(model, opt, None, cfg)
+
+    def step(params, state, batch):
+        loss, params, state, _, _ = train_step(params, state, None, batch)
+        loss.item()
+        return params, state
+
+    params, state = step(params, state, batches[0])          # warm: allocator, cuBLAS
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches[1:]:
+            params, state = step(params, state, batch)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    marks = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.name in ("forward", "backward", "update")
+             and e.device_type == DeviceType.CPU]
+    phases = {n: {"device_ms": 0.0, "host_ms": 0.0, "kernels_ms": {}}
+              for n in ("forward", "backward", "update", "unmarked")}
+    for name, start, end in marks:
+        phases[name]["host_ms"] += (end - start) * 1e-3
+    busy_us = 0.0
+    for e in events:
+        # the marks' device-side spans share their names: not kernels
+        if e.device_type != DeviceType.CUDA or e.name in phases:
+            continue
+        us = e.time_range.elapsed_us()
+        busy_us += us
+        phase = next((n for n, a, b in marks if a <= e.time_range.start <= b), "unmarked")
+        ph = phases[phase]
+        ph["device_ms"] += us * 1e-3
+        ph["kernels_ms"][e.name] = ph["kernels_ms"].get(e.name, 0.0) + us * 1e-3
+    out = {"steps": steps, "point": point, "wall_s": wall, "step_s": wall / steps,
+           "device_busy_s": busy_us * 1e-6, "device_busy_share": busy_us * 1e-6 / wall,
+           "phases": phases}
+    for key, tag in (("rmsnorm_ms", "rmsnorm"), ("flash_ms", "flash_kernel")):
+        out[key] = {n: sum(v for k, v in ph["kernels_ms"].items() if tag in k)
+                    for n, ph in phases.items()}
+    for ph in phases.values():
+        ph["kernels_ms"] = dict(sorted(ph["kernels_ms"].items(), key=lambda kv: -kv[1])[:8])
+    print(f"profile train at {point}: {steps} steps in {wall:.3f} s on the host clock, device busy "
+          f"{out['device_busy_s']:.3f} s ({100 * out['device_busy_share']:.1f}%); "
+          f"rmsnorm ms {out['rmsnorm_ms']}, flash attention ms {out['flash_ms']}")
+    for name, ph in phases.items():
+        print(f"  {name}: device {ph['device_ms']:.1f} ms, host {ph['host_ms']:.1f} ms; "
+              + ", ".join(f"{k[:48]} {v:.1f}" for k, v in list(ph["kernels_ms"].items())[:5]))
+    del params, state
+    return out
+
+
 def time_lm(libs, dev, gen, serve_report) -> dict:
     """Each LM kernel at the serving shapes beside its bound, its plain
     version and one library call."""
@@ -946,6 +1330,8 @@ def main(argv=None) -> int:
             "matmul": check_matmul(libs["matmul"], dev, gen),
             "attention": check_attention(libs["attention"], dev, gen),
             "rmsnorm": check_rmsnorm(libs["rmsnorm"], dev, gen),
+            "rmsnorm_grad": check_rmsnorm_grad(dev, gen),
+            "attention_grad_wiring": check_attention_grad_wiring(dev, gen),
         }
         l_err, l_checks, l_compile_s, l_first_s = check_lintra(dev, gen)
         report["checks"]["lintra"] = {"max_abs_err": l_err, "checks": l_checks}
@@ -958,7 +1344,21 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         save()
 
-    # -- 5. times at the main paths' shapes ---------------------------------
+    # -- 5. the third path: LM training, and where its step's time goes ----
+    train_report = None
+    if "train" in only:
+        report["model_grads"] = check_model_grads(dev)
+        torch.cuda.empty_cache()
+        save()
+        train_report = report["train"] = run_train(dev)
+        torch.cuda.empty_cache()
+        save()
+        report["train_profile"] = profile_train(
+            dev, train_report["runs"][-1]["autotune"]["active_point"])
+        torch.cuda.empty_cache()
+        save()
+
+    # -- 6. times at the main paths' shapes ---------------------------------
     if "time" in only:
         report["euclid_times"] = time_euclid(rows, dev, gen)
         report["times"] = time_lm(libs, dev, gen, serve_report)
@@ -1019,6 +1419,7 @@ def main(argv=None) -> int:
          "working_set_fits_l2": l_bytes <= l2_bytes},
     ]
     serve_launches = serve_report["launches"]
+    train_launches = train_report["runs"][0]["launches"]
     for name, key, src, tpu, tol in (
             ("matmul", "matmul", MATMUL_SRC, MATMUL_TPU, MATMUL_TOL),
             ("rmsnorm", "rmsnorm", RMSNORM_SRC, RMSNORM_TPU, RMSNORM_TOL),
@@ -1027,6 +1428,7 @@ def main(argv=None) -> int:
         t, chk = lm[key], checks[key]
         entry = {"name": name, "route": "cuda", "source": src, "replaces": tpu,
                  "launches": serve_launches[name],
+                 "train_launches": train_launches[name],
                  "max_abs_err": chk["max_abs_err"], "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1040,6 +1442,10 @@ def main(argv=None) -> int:
         if "tf32_max_abs_err" in chk:
             entry["tf32_control_max_abs_err"] = chk["tf32_max_abs_err"]
             entry["tf32_control_tol_used"] = chk["tf32_tol_used"]
+        if f"{key}_grad" in checks:
+            grad = checks[f"{key}_grad"]
+            entry["grad_max_abs_err"] = grad["max_abs_err"]
+            entry["grad_checks"] = grad["checks"]
         kernels.append(entry)
     report["kernels"] = kernels
     save()

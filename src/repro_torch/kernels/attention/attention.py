@@ -17,16 +17,27 @@ The kernel is CUDA C++ (``csrc/attention.cuh``; its header comment is
 the design note): 3xTF32 products on the tensor cores (``mma.sync``,
 fp32 accuracy), K and V staged by ``cp.async``, a per-warp causal skip.
 ``block_q`` and ``block_kv`` are template parameters
-at Dh = 128, one instantiation per combination (12), all built once
+at Dh = 128, one instantiation per combination (15), all built once
 into one shared library. A block clamped to the sequence, as
 ``flash_attention_pallas`` clamps ``min(block, T)``, is served by the
 smallest instantiated block that covers the sequence: one tile either
-way.
+way. A block below the smallest instantiation (``block_q`` 64 or 32 of
+the training and prefill step-programs' chunks, ``block_kv`` 32) is
+served by that smallest one: the same hand kernel and the same function,
+not a plain fallback. ``block_q`` only sets how many 128-row iterations
+a block walks, and ``block_kv`` changes no slice the kernel computes.
 
 ``flash_attention_plain`` is the same function in plain PyTorch (the
 chunked online softmax of ``ops.flash_attention_torch`` with the point's
 blocks). The wrapper uses it only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises.
+
+``FlashAttentionFunction`` makes the kernel differentiable: its forward
+is ``flash_attention_cuda``, its backward recomputes through the plain
+chunked version with the same blocks and differentiates that, as the
+reference's gradient goes through ``flash_attention_jnp``
+(double-checkpointed, so its backward recomputes score blocks). The
+Pallas kernel has no backward, so no hand backward kernel is owed.
 """
 
 from __future__ import annotations
@@ -47,7 +58,7 @@ CSRC = Path(__file__).with_name("csrc")
 
 #: the options each template parameter is instantiated for
 BLOCK_Q = (128, 256, 512)
-BLOCK_KV = (128, 256, 512, 1024)
+BLOCK_KV = (64, 128, 256, 512, 1024)
 #: the head dim the kernel is written for
 HEAD_DIM = 128
 
@@ -74,9 +85,10 @@ _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 
 def _block(value: int, extent: int, options: tuple[int, ...]) -> int:
     """The instantiated block serving ``value`` (already clamped to the
-    ``extent``, or not): an option itself, or — for a block clamped to
-    the whole extent — the smallest option that covers it."""
-    value = int(value)
+    ``extent``, or not): an option itself, the smallest option for a
+    block below it, or — for a block clamped to the whole extent — the
+    smallest option that covers it."""
+    value = max(int(value), options[0])
     if value in options:
         return value
     if value >= extent:
@@ -187,7 +199,35 @@ def flash_attention_plain(
         q_chunk=int(point["block_q"]), k_chunk=int(point["block_kv"]))
 
 
-__all__ = ["BLOCK_KV", "BLOCK_Q", "HEAD_DIM", "SMEM_BYTES", "SPLIT_BYTES", "STAGE_BYTES",
-           "build_kernels",
+class FlashAttentionFunction(torch.autograd.Function):
+    """Causal ``flash_attention_cuda`` at ``point`` under autograd (the
+    layers' call: no offset, the default scale).
+
+    Forward: the hand kernel on CUDA tensors (the plain version on the
+    CPU). Backward: recomputes the attention through
+    ``flash_attention_plain`` with the point's blocks under
+    ``torch.enable_grad()``, then ``torch.autograd.grad``; saves only q,
+    k and v.
+    """
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, point: Point):
+        ctx.save_for_backward(q, k, v)
+        ctx.point = dict(point)
+        return flash_attention_cuda(q, k, v, point)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = flash_attention_plain(*inputs, ctx.point)
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+__all__ = ["BLOCK_KV", "BLOCK_Q", "FlashAttentionFunction", "HEAD_DIM", "SMEM_BYTES",
+           "SPLIT_BYTES", "STAGE_BYTES", "build_kernels",
            "flash_attention_cuda", "flash_attention_plain", "instantiations",
            "smem_bytes", "symbol"]

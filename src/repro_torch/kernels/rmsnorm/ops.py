@@ -30,9 +30,7 @@ from repro_torch.kernels.catalog import (
     KernelDef, example_fill, spec_capacity_kb, spec_on_cuda, torch_dtype)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import (
-    build_kernels, rmsnorm_cuda, rmsnorm_plain, smem_bytes, symbol)
-
-DEFAULT_POINT: Point = {"block_rows": 128, "lookahead": 1}
+    DEFAULT_POINT, build_kernels, rmsnorm_cuda, rmsnorm_plain, smem_bytes, symbol)
 
 
 def make_space(N: int, d: int, *, vmem_kb: int = TPU_V5E.vmem_kb,

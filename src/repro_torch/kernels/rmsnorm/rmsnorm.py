@@ -18,6 +18,11 @@ once into one shared library; generating a variant resolves its symbol.
 ``rmsnorm_plain`` is the same function in plain PyTorch. The wrapper uses
 it only for tensors on the CPU; on a CUDA tensor it launches the kernel
 or raises.
+
+``RMSNormFunction`` makes the kernel differentiable: its forward is
+``rmsnorm_cuda`` at ``DEFAULT_POINT``, its backward the rmsnorm gradient
+in plain PyTorch. The reference differentiates its jnp body, and the
+Pallas kernel has no backward, so no hand backward kernel is owed.
 """
 
 from __future__ import annotations
@@ -40,6 +45,10 @@ CSRC = Path(__file__).with_name("csrc")
 
 #: the ``block_rows`` options, one instantiation each (and per type)
 BLOCK_ROWS = (8, 32, 128, 512)
+
+#: the point the model's layers launch at (the reference's jnp body has
+#: no knob); the catalog's default point too
+DEFAULT_POINT: Point = {"block_rows": 128, "lookahead": 1}
 
 #: input type -> (symbol tag, C type)
 _TYPES = {torch.float32: ("f32", "float"),
@@ -141,5 +150,39 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, point: Point, *,
     return rmsnorm_ref(x, w, eps)
 
 
-__all__ = ["BLOCK_ROWS", "build_kernels", "instantiations", "rmsnorm_cuda",
-           "rmsnorm_plain", "smem_bytes", "symbol"]
+class RMSNormFunction(torch.autograd.Function):
+    """``rmsnorm_cuda`` at ``DEFAULT_POINT`` under autograd: (N, d) rows,
+    (d,) weight, ``eps``.
+
+    Forward: the hand kernel on a CUDA tensor (the plain version on the
+    CPU), and the rows' fp32 ``rstd`` for the backward. Backward, in
+    plain PyTorch with fp32 statistics, with ``x̂ = x·rstd`` and
+    ``g' = g·w``: ``dx = rstd·(g' − x̂·mean(g'·x̂))`` and
+    ``dw = Σ_rows g·x̂``. Saves only ``x``, ``w`` and ``rstd``.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
+        y = rmsnorm_cuda(x, w, DEFAULT_POINT, eps=eps)
+        x32 = x.to(torch.float32)
+        rstd = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+        ctx.save_for_backward(x, w, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w, rstd = ctx.saved_tensors
+        xhat = x.to(torch.float32) * rstd
+        g32 = g.to(torch.float32)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            gw = g32 * w.to(torch.float32)
+            dx = (rstd * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+                  ).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = torch.sum(g32 * xhat, dim=0).to(w.dtype)
+        return dx, dw, None
+
+
+__all__ = ["BLOCK_ROWS", "DEFAULT_POINT", "RMSNormFunction", "build_kernels",
+           "instantiations", "rmsnorm_cuda", "rmsnorm_plain", "smem_bytes", "symbol"]

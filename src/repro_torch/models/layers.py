@@ -20,9 +20,14 @@ eager call routes through the plane as in the reference. Otherwise:
     its ``DEFAULT_POINT`` (the reference's jnp body has no knob), and
     causal attention without a window or an offset launches the flash
     hand kernel with the plane's chunks, clamped to the sequence as
-    ``flash_attention_pallas`` clamps its blocks;
+    ``flash_attention_pallas`` clamps its blocks. When grad mode is on
+    and an input needs a gradient (training), the two go through
+    ``RMSNormFunction`` and ``FlashAttentionFunction``, the same kernels
+    under autograd; otherwise (serving, the plane's evaluations) the
+    wrappers are called directly;
   * windowed, non-causal or offset attention, decode attention, and
-    everything on the CPU, run the plain PyTorch versions;
+    everything on the CPU, run the plain PyTorch versions (on the card,
+    the flash kernel raises for a head dim other than its 128);
   * the projections and the MLP are ``torch.matmul`` in full fp32 (the
     reference leaves these einsums to XLA, outside any Pallas kernel),
     with TF32 off, PyTorch's default.
@@ -35,11 +40,12 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.attention.attention import flash_attention_cuda
+from repro_torch.kernels.attention.attention import (
+    FlashAttentionFunction, flash_attention_cuda)
 from repro_torch.kernels.attention.ops import decode_attention, flash_attention_torch
-from repro_torch.kernels.rmsnorm.ops import DEFAULT_POINT as RMSNORM_POINT
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm.rmsnorm import (
+    DEFAULT_POINT as RMSNORM_POINT, RMSNormFunction, rmsnorm_cuda)
 from repro_torch.models.params import ParamDef
 from repro_torch.runtime.kernel_plane import active_plane, in_step_program
 
@@ -89,6 +95,11 @@ def plane_decode_chunk(cfg: ModelConfig) -> int:
     return cfg.decode_k_chunk
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 # ----------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     plane = _plane_routes()
@@ -100,9 +111,11 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
         if y is not None:
             return y.reshape(shape)
     if x.is_cuda:
-        y = rmsnorm_cuda(x.reshape(-1, shape[-1]).contiguous(),
-                         scale.to(x.dtype).contiguous(), RMSNORM_POINT, eps=eps)
-        return y.reshape(shape)
+        rows = x.reshape(-1, shape[-1]).contiguous()
+        w = scale.to(x.dtype).contiguous()
+        if _needs_grad(x, scale):
+            return RMSNormFunction.apply(rows, w, eps).reshape(shape)
+        return rmsnorm_cuda(rows, w, RMSNORM_POINT, eps=eps).reshape(shape)
     return rmsnorm_ref(x, scale, eps)
 
 
@@ -192,8 +205,10 @@ def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int):
     qc, kc = plane_attn_chunks(cfg)
     if q.is_cuda and causal and q_offset == 0 and cfg.window is None:
         point = {"block_q": min(qc, q.shape[1]), "block_kv": min(kc, k.shape[1])}
-        return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), point)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if _needs_grad(q, k, v):
+            return FlashAttentionFunction.apply(q, k, v, point)
+        return flash_attention_cuda(q, k, v, point)
     return flash_attention_torch(
         q, k, v, causal=causal, q_offset=q_offset, window=cfg.window,
         q_chunk=qc, k_chunk=kc, scores_f32=cfg.attn_scores_f32)

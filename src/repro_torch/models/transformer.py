@@ -12,17 +12,31 @@ of ``models/moe.py``.
 inside :func:`~repro_torch.runtime.kernel_plane.step_program`, so no
 layer call inside them routes through a kernel-plane handle (see
 ``repro_torch/models/layers.py``).
+
+**Remat.** ``cfg.remat`` picks what ``loss`` keeps for the backward,
+block by block, as the reference's ``_remat`` does around its scan
+body: ``"none"`` keeps every activation; ``"full"`` and ``"dots"`` both
+wrap each block in ``torch.utils.checkpoint(..., use_reentrant=False)``,
+which keeps the block's inputs and recomputes the rest in the backward.
+PyTorch has no counterpart of JAX's ``dots_with_no_batch_dims_saveable``
+that sees the hand kernels (selective checkpointing decides per aten op,
+and the kernels are launched outside aten), so ``"dots"`` recomputes the
+products too: the same gradients, one more forward per block. The
+recompute runs under the kernel plane and the step-program mark that
+were active in the forward, whichever thread autograd runs it on, so it
+launches what the forward launched and never routes through a handle.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef, cast_params
-from repro_torch.runtime.kernel_plane import step_program
+from repro_torch.runtime.kernel_plane import active_plane, step_program, use_kernel_plane
 
 
 def stack_defs(defs: dict, n: int) -> dict:
@@ -119,6 +133,18 @@ class TransformerLM(nn.Module):
             pos = torch.arange(T, device=device)[None].expand(B, T)
         return pos
 
+    def _remat_block(self, block: TransformerBlock, positions: torch.Tensor):
+        """``block`` under ``cfg.remat`` (see the module docstring)."""
+        if self.cfg.remat == "none" or not torch.is_grad_enabled():
+            return lambda h, lp: block(h, lp, positions)
+        plane = active_plane()
+
+        def run(h, lp):
+            with use_kernel_plane(plane), step_program():
+                return block(h, lp, positions)
+
+        return lambda h, lp: checkpoint(run, h, lp, use_reentrant=False)
+
     # --- steps ---
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
         cfg = self.cfg
@@ -129,9 +155,12 @@ class TransformerLM(nn.Module):
             h = L.embed_tokens(tokens, params["tok"], cfg)
             positions = self._positions(batch, B, T, tokens.device)
             for i, block in enumerate(self.layers):
-                h = block(h, layer_params(params["layers"], i), positions)
+                h = self._remat_block(block, positions)(
+                    h, layer_params(params["layers"], i))
             h = L.norm(h, params["ln_f"], cfg.norm)
             logits = L.logits_out(h, params["tok"], cfg)
+            # the reference adds 0.01 * the MoE load-balancing loss here;
+            # it is 0 for the dense family, the one the port builds
             return L.cross_entropy(logits, batch["labels"], batch.get("mask"))
 
     def prefill(self, params: dict, batch: dict):
