@@ -15,7 +15,12 @@ the kernels' launch counts set to 0 just before and read just after:
    repro_torch.launch.serve --arch deepseek-7b --autotune --kernel-tuning
    kernel --batch 4 --prompt-len 512 --tokens 32 --requests 2`` at
    deepseek-7b's full width and depth (random weights from a seed),
-   running the matmul, rmsnorm and flash-attention CUDA C++ kernels;
+   running the matmul, rmsnorm and flash-attention CUDA C++ kernels,
+   with ``--registry``; then (phase ``warm``) a second process of the
+   same command with ``--requests 1`` must warm-start every kernel handle
+   from that registry. The serve phase also times each handle's starting
+   points (its explorer's base point, its ``DEFAULT_POINT`` and its
+   served point) and lists every evaluation's score;
 3. LM training — ``repro_torch.runtime.train_loop.train`` on deepseek-7b
    at full width, cut to 2 of its 30 layers (the fp32 AdamW state of all
    30 does not fit the card), B = 4, T = 512, with ``--autotune
@@ -23,10 +28,18 @@ the kernels' launch counts set to 0 just before and read just after:
    second run to step 14 that must resume there with a warm-started
    registry. The step's forward launches the rmsnorm and flash-attention
    kernels through their autograd Functions (again in each block's
-   recompute); the handles' evaluations launch all three.
+   recompute); the handles' evaluations launch all three;
+4. the rest of the front door (phase ``front``) — quickstart's real run
+   (``examples/torch_quickstart.py``, euclid), paper Table 4
+   (``benchmarks/torch_table4_tuning_stats.py``, euclid and lintra), the
+   compile farm's ``process`` backend compiling lintra's Triton binaries
+   in spawned children, and the reduced serve example
+   (``examples/torch_serve_lm.py``: heads of 16, so the flash kernel's
+   Dh 16 instantiations).
 
 Then it holds each kernel against its plain PyTorch version (every
-instantiation at every ring depth at ragged shapes, a few points at the
+instantiation at every ring depth at ragged shapes — for attention at
+each head dim, 16, 64 and 128 — a few points at the
 main path's shapes, with limits a TF32 product fails, and a TF32 control
 that shows it), compares the served model's prefill logits with the
 plain versions on the CPU at full width and 2 layers (and the training
@@ -44,8 +57,9 @@ forward, the backward and the update apart.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. Full results go to
 ``chiprun_out/chip_smoke.json``. ``--only build,check`` (any of
-``build``, ``table3``, ``serve``, ``profile``, ``check``, ``logits``,
-``train``, ``time``) runs a subset and prints no verdict: a quick look at a new
+``build``, ``table3``, ``serve``, ``warm`` (after ``serve``), ``profile``,
+``front``, ``check``, ``logits``, ``train``, ``time``) runs a subset and
+prints no verdict: a quick look at a new
 kernel (``--only build,check,time`` times the kernels at DEFAULT_POINT
 where Table 3 has not run).
 """
@@ -83,11 +97,18 @@ RMSNORM_TPU = "src/repro/kernels/rmsnorm/rmsnorm.py:40"
 ATTENTION_SRC = "src/repro_torch/kernels/attention/csrc/attention.cuh"
 ATTENTION_TPU = "src/repro/kernels/attention/attention.py:112"
 
+#: the serving path's registry: written when the serve phase's session
+#: closes, read by the warm phase's second process, removed after it
+SERVE_REGISTRY = ROOT / "build" / "serve_registry.json"
 #: the serving path, as its CLI would be called
 SERVE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel",
               "--batch", "4", "--prompt-len", "512", "--tokens", "32",
-              "--requests", "2"]
-PHASES = ("build", "table3", "serve", "profile", "check", "logits", "train", "time")
+              "--requests", "2", "--registry", str(SERVE_REGISTRY)]
+#: the reduced serve example, as its command line would be called
+SERVE_EXAMPLE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel",
+                      "--requests", "2"]
+PHASES = ("build", "table3", "serve", "warm", "profile", "front", "check", "logits",
+          "train", "time")
 #: the training path: deepseek-7b at full width cut to 2 layers, B 4, T 512
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 512
 TRAIN_STEPS, TRAIN_RESUME_STEPS = 12, 14
@@ -207,8 +228,8 @@ def check_euclid(lib, dev, gen) -> dict:
     """Every instantiation at every ring depth against the plain version
     at ragged shapes (N, M no multiple of any block; D = 70 or 130, rows
     of 280 or 520 bytes, the 4-byte copies), plus a few points at
-    simlarge, then a control: a TF32 product at simlarge must fail the
-    same limit."""
+    simlarge and every point at the front path's shapes, then a control:
+    a TF32 product at simlarge must fail the same limit."""
     import torch
 
     from repro_torch.kernels.euclid.euclid import PHASE1, euclid_cuda, euclid_plain
@@ -236,6 +257,12 @@ def check_euclid(lib, dev, gen) -> dict:
     big = make_space(16384, 1024, 128, vmem_kb=cap, hopper=True)
     picks = [p for i, p in enumerate(big.iter_valid()) if i % 271 == 0]
     cases += [((16384, 1024, 128), p) for p in picks]
+    # the front path's shapes: quickstart's points (DEFAULT_POINT at each
+    # block_d) and every point of the card's space at quickstart's
+    # (2048, 64, 64) and Table 4's (1024, 64, D)
+    cases += [((2048, 64, 64), dict(DEFAULT_POINT, block_d=bd)) for bd in (16, 32, 64)]
+    for shape in ((2048, 64, 64), (1024, 64, 32), (1024, 64, 64), (1024, 64, 128)):
+        cases += [(shape, p) for p in make_space(*shape, vmem_kb=cap, hopper=True).iter_valid()]
     worst, used, inputs = 0.0, 0.0, {}
     for (n, m, d), point in cases:
         if (n, m, d) not in inputs:
@@ -278,7 +305,9 @@ def lib_capacity_kb(dev) -> int:
 
 def check_lintra(dev, gen) -> tuple[float, int, list, list]:
     """About 20 points on a ragged image and at bigben against the plain
-    version, each new binary compiled from a cold Triton cache. Returns
+    version, each new binary compiled from a cold Triton cache (the
+    binaries whose compiles are timed), then every point at Table 4's
+    shapes in another cold cache. Returns
     (max abs error, checks, seconds of each new compile, seconds of each
     new binary's first launch up to a sync)."""
     import torch
@@ -319,7 +348,30 @@ def check_lintra(dev, gen) -> tuple[float, int, list, list]:
           f"rtol={LINTRA_TOL['rtol']} atol={LINTRA_TOL['atol']}; per new "
           f"binary, Triton compile s {[round(t, 3) for t in compile_s]}, "
           f"first launch s {[round(t, 3) for t in first_launch_s]}")
-    return worst, n_checks, compile_s, first_launch_s
+    # the front path's shapes: every point of the space at Table 4's
+    # H 160 / 292 / 332 (W 200, 3 bands), which the process-backend check
+    # (332 x 200 x 3) only samples; one binary per compile key, shared
+    # across the three heights
+    t4_worst, t4_checks = 0.0, 0
+    with cold_triton_cache():
+        kernel = LintraKernel()
+        for h in (160, 292, 332):
+            x = torch.randn(h, 200 * 3, generator=gen, device=dev)
+            a = torch.tensor([1.5, 0.5, 2.0], device=dev)
+            b = torch.tensor([0.1, -0.2, 0.3], device=dev)
+            want = lintra_plain(x, a, b)
+            for point in make_space(h, 200, 3, vmem_kb=cap).iter_valid():
+                got = lintra_triton(x, a, b, point, kernel=kernel)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                t4_worst = max(t4_worst, err)
+                t4_checks += 1
+                if not torch.allclose(got, want, **LINTRA_TOL):
+                    fail(f"lintra {point} at {(h, 200)}: max|err| {err:.3e} "
+                         f"beyond {LINTRA_TOL}")
+    print(f"lintra at Table 4's shapes: {t4_checks} checks, max|err| {t4_worst:.3e} "
+          f"within rtol={LINTRA_TOL['rtol']} atol={LINTRA_TOL['atol']}")
+    return max(worst, t4_worst), n_checks + t4_checks, compile_s, first_launch_s
 
 
 def bound(flops: float, nbytes: float, *, tf32x3: bool = False) -> tuple[float, str]:
@@ -373,6 +425,7 @@ def reset_lm_counts() -> None:
     for fn in (matmul_cuda, rmsnorm_cuda, flash_attention_cuda):
         fn.launches = 0
     rmsnorm_cuda.launches_by_rows = {}
+    flash_attention_cuda.launches_by_head_dim = {}
 
 
 def lm_counts() -> dict:
@@ -384,8 +437,11 @@ def lm_counts() -> dict:
             "flash_attention": flash_attention_cuda.launches}
 
 
-def run_serve() -> dict:
-    """The serving path at full width, through the CLI's own code."""
+def run_serve(dev) -> dict:
+    """The serving path at full width, through the CLI's own code, under a
+    session held here, so that its handles can be read before it closes
+    (R1: each handle's starting points and evaluations). Closing the
+    session writes the registry the warm phase starts from."""
     from repro_torch.launch import serve as serve_cli
 
     args, tcfg = serve_cli.parse_args(SERVE_ARGS)
@@ -411,31 +467,258 @@ def run_serve() -> dict:
               f"{row['overhead_pct']:.2f}%, explored "
               f"{ {n: k['explored'] for n, k in per.items()} }")
 
-    reset_lm_counts()
-    t0 = time.perf_counter()
-    serve_cli.serve(args, tcfg, on_request=on_request)
-    seconds = time.perf_counter() - t0
-    launches = lm_counts()
-    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
-    rms_by_rows = dict(sorted(rmsnorm_cuda.launches_by_rows.items()))
-    print(f"serve path: {seconds:.1f} s, kernel launches {launches}; rmsnorm "
-          f"launches by rows {rms_by_rows} (prefill 2048, decode 4; other row "
-          f"counts are the tuner's evaluations)")
-    registered = set(rows[-1]["kernels"])
-    print(f"  plane handles: {sorted(registered)}; decode_attention registered: "
-          f"{'decode_attention' in registered} (its validator refuses every "
-          f"k_chunk at B=4, Hk=32, Dh=128, as the reference's does)")
-    missing = {"rmsnorm", "matmul", "attention"} - registered
-    if missing:
-        fail(f"attach_kernels left {sorted(missing)} without a handle")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"the serving path never launched the {name} kernel")
-    faulted = [r["request"] for r in rows if r["quarantined"]]
-    if faulted:
-        fail(f"variants were quarantined in requests {faulted}")
+    SERVE_REGISTRY.unlink(missing_ok=True)
+    session = serve_cli.make_session(args, tcfg)
+    try:
+        reset_lm_counts()
+        t0 = time.perf_counter()
+        serve_cli.serve(args, tcfg, session, on_request=on_request)
+        seconds = time.perf_counter() - t0
+        launches = lm_counts()
+        from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
+        rms_by_rows = dict(sorted(rmsnorm_cuda.launches_by_rows.items()))
+        print(f"serve path: {seconds:.1f} s, kernel launches {launches}; rmsnorm "
+              f"launches by rows {rms_by_rows} (prefill 2048, decode 4; other row "
+              f"counts are the tuner's evaluations)")
+        registered = set(rows[-1]["kernels"])
+        print(f"  plane handles: {sorted(registered)}; decode_attention registered: "
+              f"{'decode_attention' in registered} (its validator refuses every "
+              f"k_chunk at B=4, Hk=32, Dh=128, as the reference's does)")
+        missing = {"rmsnorm", "matmul", "attention"} - registered
+        if missing:
+            fail(f"attach_kernels left {sorted(missing)} without a handle")
+        for name, n in launches.items():
+            if n == 0:
+                fail(f"the serving path never launched the {name} kernel")
+        faulted = [r["request"] for r in rows if r["quarantined"]]
+        if faulted:
+            fail(f"variants were quarantined in requests {faulted}")
+        plane = sorted(h.name for h in session.plane.handles())
+        r1 = starting_points(session)
+    finally:
+        session.close()
+    if not SERVE_REGISTRY.exists():
+        fail(f"the serving session wrote no registry at {SERVE_REGISTRY}")
+    print(f"  registry {SERVE_REGISTRY.name}: bests of "
+          f"{sorted(json.loads(k)['k'] for k in json.loads(SERVE_REGISTRY.read_text()) if not k.startswith('__'))}")
     return {"seconds": seconds, "launches": launches, "requests": rows,
-            "handles": sorted(registered), "rmsnorm_launches_by_rows": rms_by_rows}
+            "handles": sorted(registered), "plane_handles": plane,
+            "rmsnorm_launches_by_rows": rms_by_rows, "starting_points": r1}
+
+
+def starting_points(session) -> dict:
+    """R1: where each plane handle's tuner started and what it served, on
+    the card at serving's shapes. Times the explorer's base point (the
+    space's first values, ``space.default_point()``, unless a warm point
+    overrode it), the kernel's declared ``DEFAULT_POINT`` and the served
+    point, each generated through the handle's own compilette on its
+    example arguments; and lists every evaluation's score of the run."""
+    from repro_torch.kernels.catalog import get_catalog
+
+    out = {}
+    for h in session.plane.handles():
+        comp, ex = h.tuner.compilette, h.tuner.explorer
+        points = {"base": ex.base_point, "space_default": comp.space.default_point(),
+                  "DEFAULT_POINT": get_catalog().get(h.name).default_point,
+                  # a tuner that never swapped serves its reference: the base
+                  "served": h.tuner.stats()["active_point"] or ex.base_point}
+        args = comp.example_call_args()
+        ms = {}
+        for label, pt in points.items():
+            if pt is None or not comp.space.is_valid(pt):
+                ms[label] = None
+                continue
+            fn = comp.generate(dict(pt), **h.specialization).fn
+            # rmsnorm is shorter than an eager call's host cost: graph replays
+            ms[label] = (device_ms(fn, *args) if h.name == "rmsnorm"
+                         else time_ms(fn, *args, reps=5 if h.name == "matmul" else 20))
+        evals = [{"point": p, "score_ms": 1e3 * sc} for p, sc in ex.history]
+        out[h.name] = {"points": points, "ms": ms, "evaluations": evals,
+                       "reference_score_ms": 1e3 * h.tuner.reference_score_s,
+                       "spec": {k: v for k, v in h.specialization.items()}}
+        print(f"R1 {h.name}: " + ", ".join(
+            f"{k} {v:.4f} ms" if v is not None else f"{k} invalid"
+            for k, v in ms.items())
+              + f"; base {points['base']}, DEFAULT_POINT {points['DEFAULT_POINT']}, "
+              f"served {points['served']}; evaluations (ms): "
+              + ", ".join(f"{e['score_ms']:.4f}" for e in evals))
+    return out
+
+
+def run_warm(serve_report) -> dict:
+    """The serve CLI's warm start at full width: a second process, ``python
+    -m repro_torch.launch.serve`` with the serve phase's arguments and
+    ``--requests 1``, starts from the registry the first one wrote. Every
+    plane-managed handle of the first process must warm-start there, and
+    its first regeneration (if it has one) must re-validate the persisted
+    best, as the reference's kernel-plane benchmark asserts."""
+    args = list(SERVE_ARGS)
+    args[args.index("--requests") + 1] = "1"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
+                             capture_output=True, text=True, timeout=900, env=env,
+                             cwd=str(ROOT))
+    finally:
+        seconds = time.perf_counter() - t0
+    log = ROOT / "chiprun_out" / "warm_serve.log"
+    log.write_text(res.stdout + "\n== stderr\n" + res.stderr)
+    if res.returncode != 0:
+        fail(f"the second serve process exited {res.returncode}: {res.stderr[-2000:]}")
+    SERVE_REGISTRY.unlink(missing_ok=True)
+    req = re.search(r"req 0: ([\d.]+) tok/s, prefill (\d+) ms", res.stdout)
+    kernels = re.search(r"kernels: (.*)", res.stdout)
+    if req is None or kernels is None:
+        fail(f"the second serve process printed no request line: {res.stdout[-2000:]}")
+    handles = {}
+    for m in re.finditer(r"(\w+):(\w+)×(\d+)(\(warm\))?", kernels.group(1)):
+        handles[m.group(1)] = {"regenerations": int(m.group(3)), "warm": bool(m.group(4))}
+    cold = [n for n in serve_report["plane_handles"] if not handles.get(n, {}).get("warm")]
+    if cold:
+        fail(f"the second serve process did not warm-start {cold}: {kernels.group(1)}")
+    for m in re.finditer(r"warm (\w+): started from (\{.*?\}); (re-validated at "
+                         r"regeneration (\d+)|served as the reference)", res.stdout):
+        handles.setdefault(m.group(1), {})["start"] = m.group(2)
+        handles[m.group(1)]["revalidated_at"] = int(m.group(4)) if m.group(4) else None
+    late = {n: h.get("revalidated_at", "no line") for n, h in handles.items()
+            if h.get("revalidated_at", "no line") not in (None, 1)}
+    if late:
+        fail(f"warm-started handles did not re-validate their best first: {late}")
+    out = {"seconds": seconds, "decode_tok_s": float(req.group(1)),
+           "prefill_ms": int(req.group(2)), "handles": handles}
+    print(f"warm start: a second process in {seconds:.1f} s (set-up included), "
+          f"first prefill {out['prefill_ms']} ms, decode {out['decode_tok_s']} tok/s; "
+          f"handles {handles}")
+    return out
+
+
+def _load(path: Path):
+    """A script of the checkout (an example, a benchmark) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"_chip_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_process_backend(dev, n_points: int = 6) -> dict:
+    """The compile farm's ``process`` backend on lintra: ``n_points``
+    points with distinct Triton binaries, each compiled by a spawned
+    child into a cold Triton cache, then loaded by the parent's own
+    generate from that cache; each variant is held against the plain
+    version."""
+    import torch
+
+    from repro_torch.core import CompileFarm
+    from repro_torch.kernels.catalog import get_catalog
+    from repro_torch.kernels.lintra.lintra import cold_triton_cache, compile_key, lintra_plain
+
+    H, W, B = 332, 200, 3
+    spec = {"H": H, "W": W, "bands": B, "dtype": "float32", "device": str(dev)}
+    comp = get_catalog().compilette("lintra", spec)
+    points, keys = [], set()
+    for p in comp.space.iter_valid():
+        key = compile_key(p, B, W * B)
+        if key not in keys:
+            keys.add(key)
+            points.append(p)
+        if len(points) == n_points:
+            break
+    farm = CompileFarm("process", workers=2)
+    t0 = time.perf_counter()
+    try:
+        with cold_triton_cache():
+            tickets = [farm.submit(comp, p, {}) for p in points]
+            deadline = time.perf_counter() + 600
+            while not all(t.done for t in tickets):
+                if time.perf_counter() > deadline:
+                    fail("the process backend's lintra compiles did not finish in 600 s")
+                time.sleep(0.05)
+    finally:
+        farm.shutdown()
+    wall = time.perf_counter() - t0
+    stats = farm.stats()
+    errors = [str(t.error) for t in tickets if t.error is not None]
+    if errors:
+        fail(f"process-backend lintra compiles failed: {errors}")
+    if (stats["process_offloaded"], stats["process_fallbacks"]) != (len(points), 0):
+        fail(f"the process backend offloaded {stats['process_offloaded']} of "
+             f"{len(points)} lintra compiles ({stats['process_fallbacks']} fell back)")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(H, W, B, generator=gen, device=dev)
+    a = torch.tensor([1.5, 0.5, 2.0], device=dev)
+    b = torch.tensor([0.1, -0.2, 0.3], device=dev)
+    want = lintra_plain(x.reshape(H, W * B), a, b).reshape(H, W, B)
+    rows = []
+    for t in tickets:
+        got = t.kern.fn(x, a, b)
+        torch.cuda.synchronize()
+        if not torch.allclose(got, want, **LINTRA_TOL):
+            fail(f"process-compiled lintra {t.point} disagrees with its plain version")
+        child = t.kern.meta["process_compile_s"]
+        rows.append({"point": t.point, "child_compile_s": child,
+                     "parent_load_s": t.kern.generation_time_s - child,
+                     "child_pid": t.kern.meta["process_pid"]})
+    pids = {r["child_pid"] for r in rows}
+    if os.getpid() in pids:
+        fail("a process-backend compile ran in the parent")
+    print(f"process backend: {len(rows)} lintra compiles offloaded to {len(pids)} "
+          f"spawned children in {wall:.2f} s (spawn included), 0 fallbacks; child "
+          f"compile s {[round(r['child_compile_s'], 3) for r in rows]}, parent load s "
+          f"{[round(r['parent_load_s'], 4) for r in rows]}")
+    return {"stats": stats, "wall_s": wall, "compiles": rows}
+
+
+def run_front(dev) -> dict:
+    """The rest of the front door on the card: quickstart's real run
+    (``examples/torch_quickstart.py``), paper Table 4
+    (``benchmarks/torch_table4_tuning_stats.py``), the compile farm's
+    process backend on lintra, and the reduced serve example
+    (``examples/torch_serve_lm.py``: heads of 16, the flash kernel's Dh 16
+    instantiations). Launch counts are set to 0 just before and read just
+    after."""
+    from repro_torch.kernels.attention.attention import flash_attention_cuda
+    from repro_torch.kernels.euclid.euclid import euclid_cuda
+    from repro_torch.kernels.lintra.lintra import lintra_triton
+
+    reset_lm_counts()
+    euclid_cuda.launches = 0
+    lintra_triton.launches = 0
+    t0 = time.perf_counter()
+    quick = _load(ROOT / "examples" / "torch_quickstart.py").main(str(dev))
+    t4 = _load(ROOT / "benchmarks" / "torch_table4_tuning_stats.py").run(device=dev)
+    process = check_process_backend(dev)
+    outs = _load(ROOT / "examples" / "torch_serve_lm.py").main(
+        [*SERVE_EXAMPLE_ARGS, "--device", str(dev)])
+    seconds = time.perf_counter() - t0
+    launches = {"euclid": euclid_cuda.launches, "lintra": lintra_triton.launches,
+                **lm_counts()}
+    by_dh = dict(sorted(flash_attention_cuda.launches_by_head_dim.items()))
+    print(f"front path: {seconds:.1f} s, kernel launches {launches}; flash attention "
+          f"by head dim {by_dh}")
+    if len(t4["rows"]) != 6:
+        fail(f"Table 4 produced {len(t4['rows'])} rows, not 6")
+    for name in ("euclid", "lintra", "rmsnorm", "flash_attention"):
+        if launches[name] == 0:
+            fail(f"the front path never launched the {name} kernel")
+    if by_dh.get(16, 0) == 0:
+        fail("the reduced serve example never launched the flash kernel at Dh 16")
+    serve_example = [{"prefill_s": o["prefill_s"], "decode_tok_s": o["decode_tokens_per_s"],
+                      "autotune": {k: o["autotune"][k] for k in
+                                   ("regenerations", "swaps", "overhead_frac")}}
+                     for o in outs]
+    return {"seconds": seconds, "launches": launches,
+            "attention_launches_by_head_dim": by_dh,
+            "quickstart": {k: quick[k] for k in ("calls", "wall_s", "best_point",
+                                                 "max_abs_err")}
+            | {"explored": quick["stats"]["n_explored"],
+               "swaps": quick["stats"]["swaps"],
+               "tuning_spent_s": quick["stats"]["tuning_spent_s"]},
+            "table4": t4, "process_backend": process, "serve_example": serve_example}
 
 
 def profile_serve(dev, decode_steps: int = 8) -> dict:
@@ -593,60 +876,81 @@ def check_matmul(lib, dev, gen) -> dict:
 
 
 def check_attention(lib, dev, gen) -> dict:
-    """Every instantiation at a ragged shape (Tkv no multiple of any
-    block, G = 4), offset and non-causal calls, a few points at the
-    serving shape, and a TF32 control."""
+    """Every instantiation (each head dim, block_q and block_kv) at every
+    ring depth: a ragged shape (Tkv no multiple of any block, G = 4), an
+    offset call and a small GQA call with a ragged tail; non-causal calls;
+    every block at every ring depth at the reduced serve example's
+    prefill (Dh 16); a few points at the serving shape (Dh 128), at
+    qwen3-moe's width (Dh 64) and at the timed Dh 16 shape; and TF32
+    controls at Dh 128 and 64."""
     import torch
 
     from repro_torch.kernels.attention.attention import (
-        BLOCK_KV, BLOCK_Q, flash_attention_cuda, flash_attention_plain)
+        BLOCK_KV, BLOCK_Q, HEAD_DIMS, flash_attention_cuda, flash_attention_plain)
 
-    cases, inputs = [], {}
+    cases, inputs, per_dh = [], {}, {}
 
-    def args(B, Tq, Tkv, H, Hk):
-        key = (B, Tq, Tkv, H, Hk)
+    def args(B, Tq, Tkv, H, Hk, Dh):
+        key = (B, Tq, Tkv, H, Hk, Dh)
         if key not in inputs:
-            inputs[key] = (torch.randn(B, Tq, H, 128, generator=gen, device=dev),
-                           torch.randn(B, Tkv, Hk, 128, generator=gen, device=dev),
-                           torch.randn(B, Tkv, Hk, 128, generator=gen, device=dev))
+            inputs[key] = (torch.randn(B, Tq, H, Dh, generator=gen, device=dev),
+                           torch.randn(B, Tkv, Hk, Dh, generator=gen, device=dev),
+                           torch.randn(B, Tkv, Hk, Dh, generator=gen, device=dev))
         return inputs[key]
 
     def case(label, shape, point, **kw):
         q, k, v = args(*shape)
+        per_dh[shape[-1]] = per_dh.get(shape[-1], 0) + 1
         cases.append((f"{point} {kw} at {shape} {label}",
                       lambda: flash_attention_cuda(q, k, v, point, lib=lib, **kw),
                       lambda: flash_attention_plain(q, k, v, point, **kw)))
 
-    for i, (bq, bkv) in enumerate((bq, bkv) for bq in BLOCK_Q for bkv in BLOCK_KV):
-        point = {"block_q": bq, "block_kv": bkv, "lookahead": i % 3}
-        case("ragged", (2, 700, 700, 8, 2), point)
-        case("offset", (1, 300, 1000, 8, 2), dict(point, lookahead=(i + 1) % 3),
-             q_offset=700)
-    case("non-causal", (2, 200, 333, 8, 2), {"block_q": 128, "block_kv": 256},
-         causal=False)
-    serving = (4, 512, 512, 32, 32)
-    for point in ({"block_q": 512, "block_kv": 512}, {"block_q": 128, "block_kv": 128},
-                  {"block_q": 256, "block_kv": 512}):
-        case("serving", serving, point)
+    blocks = [(bq, bkv) for bq in BLOCK_Q for bkv in BLOCK_KV]
+    for dh in HEAD_DIMS:
+        for i, (bq, bkv) in enumerate(blocks):
+            point = {"block_q": bq, "block_kv": bkv}
+            case("ragged", (2, 700, 700, 8, 2, dh), dict(point, lookahead=i % 3))
+            case("offset", (1, 300, 1000, 8, 2, dh), dict(point, lookahead=(i + 1) % 3),
+                 q_offset=700)
+            case("small", (3, 150, 77, 4, 1, dh), dict(point, lookahead=(i + 2) % 3))
+        case("non-causal", (2, 200, 333, 8, 2, dh), {"block_q": 128, "block_kv": 256},
+             causal=False)
+    # the front path's prefill: the reduced serve example's (B 4, T 32,
+    # H 4, Hk 2, Dh 16), every block (each one a point the tuner may
+    # serve there) at every ring depth
+    for bq, bkv in blocks:
+        for la in (0, 1, 2):
+            case("front", (4, 32, 32, 4, 2, 16),
+                 {"block_q": bq, "block_kv": bkv, "lookahead": la})
+    serving = (4, 512, 512, 32, 32, 128)
+    moe = (4, 512, 512, 32, 4, 64)
+    reduced = (4, 512, 512, 32, 32, 16)
+    for shape in (serving, moe, reduced):
+        for point in ({"block_q": 512, "block_kv": 512}, {"block_q": 128, "block_kv": 128},
+                      {"block_q": 256, "block_kv": 512}):
+            case("main-path width", shape, point)
     out = check_cases("attention", cases, ATTENTION_TOL)
-    q, k, v = args(*serving)
+    out["checks_by_head_dim"] = per_dh
     point = {"block_q": 512, "block_kv": 512}
-    want = flash_attention_plain(q, k, v, point)
-    out["tf32_max_abs_err"], out["tf32_tol_used"] = tf32_reading(
-        lambda: flash_attention_plain(q, k, v, point), want, ATTENTION_TOL)
-    if out["tf32_tol_used"] <= 1.0:
-        fail(f"TF32 products pass the attention limit {ATTENTION_TOL}")
-    print(f"attention control: the plain version with TF32 products at the "
-          f"serving shape, max|err| {out['tf32_max_abs_err']:.3e} "
-          f"({out['tf32_tol_used']:.1f} of the limit), is refused")
+    for shape in (serving, moe):
+        q, k, v = args(*shape)
+        want = flash_attention_plain(q, k, v, point)
+        err, used = tf32_reading(lambda: flash_attention_plain(q, k, v, point), want,
+                                 ATTENTION_TOL)
+        sfx = "" if shape is serving else f"_dh{shape[-1]}"
+        out[f"tf32_max_abs_err{sfx}"], out[f"tf32_tol_used{sfx}"] = err, used
+        if used <= 1.0:
+            fail(f"TF32 products pass the attention limit {ATTENTION_TOL} at {shape}")
+        print(f"attention control: the plain version with TF32 products at "
+              f"{shape}, max|err| {err:.3e} ({used:.1f} of the limit), is refused")
     return out
 
 
 def check_rmsnorm(lib, dev, gen) -> dict:
     """Every instantiation at every ring depth and type at ragged shapes
     (N not a multiple of block_rows, d not a multiple of 4: the element
-    copies) and at the serving shapes, prefill's (2048, 4096) and
-    decode's (4, 4096)."""
+    copies), at the serving shapes, prefill's (2048, 4096) and decode's
+    (4, 4096), and at the reduced serve example's, (128, 64) and (4, 64)."""
     import torch
 
     from repro_torch.kernels.rmsnorm.rmsnorm import (
@@ -655,7 +959,7 @@ def check_rmsnorm(lib, dev, gen) -> dict:
     out = {}
     for dtype, tol in ((torch.float32, RMSNORM_TOL), (torch.bfloat16, RMSNORM_BF16_TOL)):
         cases = []
-        for N, d in ((1000, 4096), (3, 1001), (2048, 4096), (4, 4096)):
+        for N, d in ((1000, 4096), (3, 1001), (2048, 4096), (4, 4096), (128, 64), (4, 64)):
             x = torch.randn(N, d, generator=gen, device=dev).to(dtype)
             w = torch.randn(d, generator=gen, device=dev).to(dtype)
             for rows in BLOCK_ROWS:
@@ -1127,6 +1431,43 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
     at_work = (4.0 * B * H * T * T * Dh * 0.5, 4.0 * 4 * B * T * H * Dh)
     out["attention"]["bound_ms"], out["attention"]["bound_by"] = bound(*at_work)
     out["attention"]["bound_3xtf32_ms"] = bound(*at_work, tf32x3=True)[0]
+    del q, k, v, qt, kt, vt
+    # the smaller head dims at the same B, T and H: Dh 64 with qwen3-moe's
+    # 4 kv heads, Dh 16 (the reduced configs' head dim) with 32. Device
+    # times from graph replays (a Dh 16 call is shorter than an eager
+    # wrapper's host cost), the eager readings beside them
+    by_dh = {}
+    for dh, hk in ((64, 4), (16, 32)):
+        q = torch.randn(B, T, H, dh, generator=gen, device=dev)
+        k = torch.randn(B, T, hk, dh, generator=gen, device=dev)
+        v = torch.randn(B, T, hk, dh, generator=gen, device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        row = {"ms": device_ms(flash_attention_cuda, q, k, v, step_point),
+               "ms_128x128": device_ms(flash_attention_cuda, q, k, v,
+                                       {"block_q": 128, "block_kv": 128}),
+               "plain_ms": device_ms(flash_attention_plain, q, k, v, step_point),
+               "library_ms": device_ms(sdpa),
+               "eager_ms": time_ms(flash_attention_cuda, q, k, v, step_point),
+               "library_eager_ms": time_ms(sdpa),
+               "point": step_point, "shape": [B, T, H, hk, dh]}
+        work = (4.0 * B * H * T * T * dh * 0.5, 4.0 * (2 * B * T * H + 2 * B * T * hk) * dh)
+        row["bound_ms"], row["bound_by"] = bound(*work)
+        row["bound_3xtf32_ms"] = bound(*work, tf32x3=True)[0]
+        by_dh[dh] = row
+        print(f"attention at Dh {dh}, {row['shape']} (B, T, H, Hk, Dh): "
+              f"{row['ms']:.4f} ms at {step_point}, {row['ms_128x128']:.4f} at "
+              f"(128, 128); bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+              f"3xTF32 bound {row['bound_3xtf32_ms']:.4f}; plain "
+              f"{row['plain_ms']:.4f} ms; SDPA {row['library_ms']:.4f} ms (graph "
+              f"replays); eager: kernel {row['eager_ms']:.4f} ms, SDPA "
+              f"{row['library_eager_ms']:.4f} ms")
+        del q, k, v, qt, kt, vt
+    out["attention"]["by_head_dim"] = by_dh
 
     x = torch.randn(M, K, generator=gen, device=dev)
     w = torch.randn(K, generator=gen, device=dev)
@@ -1314,12 +1655,25 @@ def main(argv=None) -> int:
     # -- 3. the second path: LM serving with kernel tuning ------------------
     serve_report = None
     if "serve" in only:
-        serve_report = report["serve"] = run_serve()
+        serve_report = report["serve"] = run_serve(dev)
         torch.cuda.empty_cache()
+        save()
+    if "warm" in only:
+        if serve_report is None:
+            fail("the warm phase starts from the serve phase's registry: add 'serve'")
+        report["warm"] = run_warm(serve_report)
         save()
 
     if "profile" in only:
         report["profile"] = profile_serve(dev)
+        torch.cuda.empty_cache()
+        save()
+
+    # -- 3b. the rest of the front door: quickstart, Table 4, the process
+    #        backend, the reduced serve example ------------------------------
+    front_report = None
+    if "front" in only:
+        front_report = report["front"] = run_front(dev)
         torch.cuda.empty_cache()
         save()
 
@@ -1407,7 +1761,8 @@ def main(argv=None) -> int:
          "tolerance": EUCLID_TOL, "tol_used": e_check["tol_used"],
          "tf32_control_max_abs_err": e_check["tf32_max_abs_err"],
          "tf32_control_tol_used": e_check["tf32_tol_used"],
-         "by_input": report["euclid_times"]},
+         "by_input": report["euclid_times"],
+         "front_launches": report["front"]["launches"]["euclid"]},
         {"name": "lintra", "route": "triton", "source": LINTRA_SRC,
          "replaces": LINTRA_TPU, "launches": launches["lintra"],
          "max_abs_err": checks["lintra"]["max_abs_err"], "ms": lt["oat_ms"],
@@ -1416,7 +1771,8 @@ def main(argv=None) -> int:
          "bsat_ms": lt["bsat_ms"], "point": l_oat, "bsat_point": lr["bsat_point"],
          "shape": [H, W, B], "checks": checks["lintra"]["checks"],
          "bytes_per_s": l_bytes / (lt["oat_ms"] * 1e-3),
-         "working_set_fits_l2": l_bytes <= l2_bytes},
+         "working_set_fits_l2": l_bytes <= l2_bytes,
+         "front_launches": report["front"]["launches"]["lintra"]},
     ]
     serve_launches = serve_report["launches"]
     train_launches = train_report["runs"][0]["launches"]
@@ -1439,6 +1795,12 @@ def main(argv=None) -> int:
         if name == "rmsnorm":
             entry["decode_shape"] = t["decode_shape"]
             entry["launches_by_rows"] = serve_report["rmsnorm_launches_by_rows"]
+        if name == "flash_attention":
+            entry["by_head_dim"] = t["by_head_dim"]
+            entry["checks_by_head_dim"] = chk["checks_by_head_dim"]
+            entry["front_launches_by_head_dim"] = front_report["attention_launches_by_head_dim"]
+            entry["tf32_control_dh64_tol_used"] = chk["tf32_tol_used_dh64"]
+        entry["front_launches"] = front_report["launches"][name]
         if "tf32_max_abs_err" in chk:
             entry["tf32_control_max_abs_err"] = chk["tf32_max_abs_err"]
             entry["tf32_control_tol_used"] = chk["tf32_tol_used"]

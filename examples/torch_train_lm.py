@@ -10,9 +10,9 @@ online auto-tuning of the step and, with ``--kernel-tuning kernel`` or
 
 The counterpart of ``examples/train_lm.py``, with ``--device`` (default:
 the CUDA card). The sizes keep the reference's widths and depths but
-use heads of 128, the head dim the hand attention kernel is written
-for, so on the card every step launches both the rmsnorm and the flash
-attention kernels. The run is resumable: re-running the same command
+use heads of 128 (deepseek-7b's head dim; the hand attention kernel is
+also instantiated at 16 and 64), so on the card every step launches
+both the rmsnorm and the flash attention kernels. The run is resumable: re-running the same command
 continues from the last checkpoint.
 """
 

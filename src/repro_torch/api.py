@@ -5,10 +5,8 @@ same defaults and the same ``REPRO_TUNE_*`` environment keys (the port
 adds none under that prefix: the reference's ``from_env`` would raise on
 it), so one test can build both packages' sessions from one config.
 What differs: a tuned function's variants are eager PyTorch calls (no
-``jit``); the compile farm's ``"process"`` backend is not ported, so
-asking for it raises; :meth:`TuningSession.replay` waits for the port of
-``bench/replay.py``; :meth:`TuningSession.attach_kernels` takes the
-device the kernels run on.
+``jit``); :meth:`TuningSession.attach_kernels` takes the device the
+kernels run on.
 
 The paper's pitch is that online auto-tuning pays off only when it is
 cheap to *adopt* — deployed directly at the level of machine-code
@@ -90,9 +88,8 @@ __all__ = [
 KERNEL_TUNING_MODES = ("off", "program", "kernel", "both")
 # compile-farm backends: "auto" keeps the clock-based pick (virtual clock
 # -> deterministic "manual" batches, real clock -> worker threads);
-# "process" (child-process compiles in the reference) is not ported yet:
-# the names stay equal to the reference's, and a session asking for it
-# raises.
+# "process" opts into child-process compiles (Triton's compiler runs in a
+# spawned child that fills the on-disk cache the parent then loads).
 COMPILE_BACKENDS = ("auto", "thread", "process", "manual")
 
 
@@ -715,10 +712,6 @@ class TuningSession:
         self._closed = False
         self._close_mu = threading.Lock()
         cfg = self.config
-        if cfg.compile_backend == "process":
-            raise NotImplementedError(
-                "compile_backend='process' is not ported yet (ROADMAP "
-                "Queue 1 item 1): use 'auto', 'thread' or 'manual'")
         # the backend knob refines async generation: "auto" keeps the
         # coordinator's clock-based pick, an explicit backend forces
         # the farm mode (sync generation ignores both)
@@ -853,12 +846,17 @@ class TuningSession:
                **kwargs: Any) -> dict[str, Any]:
         """Re-serve a scripted traffic trace, deterministically.
 
-        The reference's entry to its ``repro.bench.replay`` harness; the
-        harness is not ported yet, so this raises.
+        The session-API entry to the :mod:`repro_torch.bench.replay`
+        harness: advances this session's (virtual) clock through the
+        trace's arrivals, serves each request via the attached kernel
+        handles (feeding per-call ``observe_latency`` through the managed
+        tuners and ``observe_busy`` credits for scripted host work), and
+        returns the per-tenant latency/speedup and session-level overhead
+        report. See :func:`repro_torch.bench.replay.replay`.
         """
-        raise NotImplementedError(
-            "session.replay waits for the port of bench/replay.py "
-            "(ROADMAP Queue 1 item 3)")
+        from repro_torch.bench.replay import replay as _replay
+
+        return _replay(self, trace, configs, **kwargs)
 
     # -------------------------------------------------------------- kernels
     def attach_kernels(self, model_cfg: Any, *, batch: int, seq: int,

@@ -20,11 +20,18 @@ prefetches for all registered tuners concurrently:
     kernel are *rejected* (``submit`` returns ``None``, the prefetcher
     just tries again next slot). A tuner's own non-speculative request
     is always admitted: there is at most one per tuner.
-  * **two backends** — ``"thread"`` (default): up to ``workers``
+  * **three backends** — ``"thread"`` (default): up to ``workers``
     daemon threads compile concurrently (nvcc and Triton's compiler run
-    outside the GIL for most of their work). ``"manual"``: no threads at
-    all; jobs complete only at explicit ``run_pending()`` calls. (The
-    reference's ``"process"`` backend is not ported yet.)
+    outside the GIL for most of their work). ``"process"``: same worker
+    threads, but a compilette exposing the ``process_payload`` protocol
+    has its compile executed in a spawned child process first — for a
+    Triton kernel the child fills Triton's on-disk cache, and the
+    parent's own compile then loads the binary from it instead of
+    compiling; a compilette with no payload (the CUDA C++ families,
+    whose variants are symbols of a library built once, and the virtual
+    backend) compiles in-thread, counted in ``process_fallbacks``.
+    ``"manual"``: no threads at all; jobs complete only at explicit
+    ``run_pending()`` calls.
 
 **Deterministic max-overlap semantics (manual mode).** One
 ``run_pending()`` call completes *up to* ``workers`` jobs, in priority
@@ -60,9 +67,24 @@ from typing import Any, Callable, Mapping
 from repro_torch.core.compilette import Compilette, GenerationTicket
 from repro_torch.core.tuning_space import Point
 
-__all__ = ["AsyncGenerator", "CompileFarm"]
+__all__ = ["AsyncGenerator", "CompileFarm", "run_process_payload"]
 
-_MODES = ("thread", "manual")
+_MODES = ("thread", "manual", "process")
+
+
+def run_process_payload(payload: tuple) -> tuple[float, int]:
+    """Child-process entry: resolve and run one compile payload.
+
+    ``payload`` is ``(module, attr, kwargs)`` — everything picklable —
+    naming a module-level callable that performs the compile and returns
+    its measured seconds. Returns ``(seconds, child_pid)``.
+    """
+    import importlib
+    import os
+
+    module, attr, kwargs = payload
+    fn = getattr(importlib.import_module(module), attr)
+    return float(fn(**dict(kwargs))), os.getpid()
 
 
 class CompileFarm:
@@ -132,12 +154,16 @@ class CompileFarm:
         self._threads: set[threading.Thread] = set()
         self._busy = 0                 # workers currently inside _run
         self._stopping = False
+        self._pool = None              # lazy ProcessPoolExecutor
+        self._pool_mu = threading.Lock()
         self.submitted = 0
         self.completed = 0
         self.failed = 0
         self.speculative_submitted = 0
         self.joined = 0
         self.rejected_speculative = 0
+        self.process_offloaded = 0
+        self.process_fallbacks = 0
         # escapes caught by _run_safe (raises past _run's own generate
         # catch, e.g. a non-canonicalizable point key or a raising
         # speculative charge callback) — each one used to kill a worker
@@ -197,7 +223,7 @@ class CompileFarm:
                 self._threads.discard(me)
 
     def shutdown(self) -> None:
-        """Drain queued jobs and stop the workers.
+        """Drain queued jobs, stop the workers, release the process pool.
 
         The farm stays usable: a later submit respawns workers (matching
         the old single-executor behaviour).
@@ -210,9 +236,62 @@ class CompileFarm:
             t.join(timeout=5.0)
         with self._cv:
             self._stopping = False
+        with self._pool_mu:
+            pool, self._pool = self._pool, None
+        if pool is not None:
+            pool.shutdown(wait=True)
+
+    # ------------------------------------------------------------- process
+    def _process_pool(self):
+        with self._pool_mu:
+            if self._pool is None:
+                import concurrent.futures
+                import multiprocessing
+
+                self._pool = concurrent.futures.ProcessPoolExecutor(
+                    max_workers=self.workers,
+                    mp_context=multiprocessing.get_context("spawn"))
+            return self._pool
+
+    def _count(self, offloaded: bool) -> None:
+        with self._mu:
+            if offloaded:
+                self.process_offloaded += 1
+            else:
+                self.process_fallbacks += 1
+
+    def _offload(self, ticket: GenerationTicket) -> tuple[float, int] | None:
+        """Run the ticket's compile payload in a child process.
+
+        Returns ``(child_seconds, child_pid)``, or ``None`` when the
+        compilette has no payload or the child failed — the caller then
+        compiles in-thread as in "thread" mode (``process_fallbacks``).
+        """
+        payload_fn = getattr(ticket.compilette, "process_payload", None)
+        if payload_fn is None:
+            self._count(False)
+            return None
+        try:
+            payload = payload_fn(ticket.point, ticket.specialization)
+        except Exception:
+            payload = None
+        if payload is None:
+            self._count(False)
+            return None
+        try:
+            fut = self._process_pool().submit(run_process_payload, payload)
+            seconds, pid = fut.result()
+        except Exception:
+            self._count(False)
+            return None
+        self._count(True)
+        return float(seconds), int(pid)
 
     # ------------------------------------------------------------- running
     def _run(self, ticket: GenerationTicket) -> None:
+        child: tuple[float, int] | None = None
+        if self.mode == "process":
+            child = self._offload(ticket)
         t0 = time.perf_counter()
         try:
             kern = ticket.compilette.generate(
@@ -235,6 +314,14 @@ class CompileFarm:
                     failed_charge = sim
             except Exception:
                 pass
+        if child is not None and kern is not None:
+            # the child's compile is real compute the budget must see,
+            # on top of whatever the parent's own generate measured
+            kern.generation_time_s += child[0]
+            kern.meta["process_compile_s"] = child[0]
+            kern.meta["process_pid"] = child[1]
+        elif child is not None:
+            failed_charge += child[0]
         try:
             key = ticket.compilette.cache_key(
                 ticket.point, ticket.specialization)
@@ -359,7 +446,7 @@ class CompileFarm:
         """Manual mode: complete up to ``max_jobs`` queued jobs inline —
         one *batch* of ``workers`` jobs by default (the max-overlap model
         of M workers each finishing one compile per pump interval). In
-        priority order; returns jobs completed. No-op in thread
+        priority order; returns jobs completed. No-op in thread/process
         mode (the workers drain the queue themselves)."""
         if self.mode != "manual":
             return 0
@@ -535,6 +622,8 @@ class CompileFarm:
                 "speculative_submitted": self.speculative_submitted,
                 "joined": self.joined,
                 "rejected_speculative": self.rejected_speculative,
+                "process_offloaded": self.process_offloaded,
+                "process_fallbacks": self.process_fallbacks,
                 "worker_errors": self.worker_errors,
                 "in_flight": len(self._inflight),
             }

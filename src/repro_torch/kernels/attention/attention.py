@@ -16,9 +16,11 @@ place (no transposed copies); the kv head of q head h is h // G.
 The kernel is CUDA C++ (``csrc/attention.cuh``; its header comment is
 the design note): 3xTF32 products on the tensor cores (``mma.sync``,
 fp32 accuracy), K and V staged by ``cp.async``, a per-warp causal skip.
-``block_q`` and ``block_kv`` are template parameters
-at Dh = 128, one instantiation per combination (15), all built once
-into one shared library. A block clamped to the sequence, as
+The head dim, ``block_q`` and ``block_kv`` are template parameters, one
+instantiation per combination (Dh 16, 64 and 128, the head dims of the
+reduced configs, of the 64-wide families and of deepseek-7b: 45), all
+built once into one shared library; the launcher picks by q's last dim
+and raises at a Dh it has no instantiation for. A block clamped to the sequence, as
 ``flash_attention_pallas`` clamps ``min(block, T)``, is served by the
 smallest instantiated block that covers the sequence: one tile either
 way. A block below the smallest instantiation (``block_q`` 64 or 32 of
@@ -59,25 +61,30 @@ CSRC = Path(__file__).with_name("csrc")
 #: the options each template parameter is instantiated for
 BLOCK_Q = (128, 256, 512)
 BLOCK_KV = (64, 128, 256, 512, 1024)
-#: the head dim the kernel is written for
-HEAD_DIM = 128
-
-#: shared memory of one ring stage (csrc/attention.cuh ``kStageBytes``):
-#: 32 keys of K and of V as copied
-STAGE_BYTES = 4 * 2 * 32 * 128
-#: the split slice (``kSplitBytes``): 32 keys of K and V as (big, small)
-#: TF32 pairs, rows padded to 132 pairs
-SPLIT_BYTES = 8 * 2 * 32 * 132
+#: the head dims the library is instantiated for
+HEAD_DIMS = (16, 64, 128)
 
 
-def smem_bytes(point: Point) -> int:
-    """Shared memory of one block at ``point``: ``lookahead + 1`` stages
-    and the split slice."""
-    return (int(point.get("lookahead", 1)) + 1) * STAGE_BYTES + SPLIT_BYTES
+def stage_bytes(Dh: int) -> int:
+    """Shared memory of one ring stage (csrc/attention.cuh
+    ``stage_bytes<DH>``): 32 keys of K and of V as copied."""
+    return 4 * 2 * 32 * Dh
 
 
-#: the largest footprint (three stages and the split slice, 162 kB)
-SMEM_BYTES = smem_bytes({"lookahead": 2})
+def split_bytes(Dh: int) -> int:
+    """The split slice (``split_bytes<DH>``): 32 keys of K and V as
+    (big, small) TF32 pairs, rows padded to Dh + 4 pairs."""
+    return 8 * 2 * 32 * (Dh + 4)
+
+
+def smem_bytes(point: Point, Dh: int) -> int:
+    """Shared memory of one block at ``point`` and head dim ``Dh``:
+    ``lookahead + 1`` stages and the split slice."""
+    return (int(point.get("lookahead", 1)) + 1) * stage_bytes(Dh) + split_bytes(Dh)
+
+
+#: the largest footprint (Dh 128: three stages and the split slice, 162 kB)
+SMEM_BYTES = smem_bytes({"lookahead": 2}, max(HEAD_DIMS))
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -100,18 +107,23 @@ def _block(value: int, extent: int, options: tuple[int, ...]) -> int:
         f"instantiated blocks are {options}")
 
 
-def symbol(point: Point, Tq: int, Tkv: int) -> str:
+def symbol(point: Point, Tq: int, Tkv: int, Dh: int) -> str:
     """Exported C name of the instantiation serving ``point`` at these
-    sequence lengths."""
+    sequence lengths and head dim."""
+    if Dh not in HEAD_DIMS:
+        raise KeyError(
+            f"no attention instantiation for head dim {Dh}: instantiated head "
+            f"dims are {HEAD_DIMS}")
     bq = _block(point["block_q"], Tq, BLOCK_Q)
     bkv = _block(point["block_kv"], Tkv, BLOCK_KV)
-    return f"attention_bq{bq}_bkv{bkv}"
+    return f"attention_dh{Dh}_bq{bq}_bkv{bkv}"
 
 
 def instantiations() -> dict[str, str]:
-    """Symbol -> instantiation line of every (block_q, block_kv)."""
-    return {f"attention_bq{bq}_bkv{bkv}": f"ATTENTION_INSTANTIATE({bq}, {bkv})"
-            for bq in BLOCK_Q for bkv in BLOCK_KV}
+    """Symbol -> instantiation line of every (Dh, block_q, block_kv)."""
+    return {f"attention_dh{dh}_bq{bq}_bkv{bkv}":
+            f"ATTENTION_INSTANTIATE({dh}, {bq}, {bkv})"
+            for dh in HEAD_DIMS for bq in BLOCK_Q for bkv in BLOCK_KV}
 
 
 def build_kernels(device: "torch.device | str | None" = None) -> KernelLibrary:
@@ -127,7 +139,7 @@ def build_kernels(device: "torch.device | str | None" = None) -> KernelLibrary:
 def _library() -> KernelLibrary:
     # memoised: the wrapper asks for it on every launch given no library
     return load_family("attention", CSRC, "attention.cuh", instantiations(),
-                       _ARGTYPES, n_units=4)
+                       _ARGTYPES, n_units=6)
 
 
 def flash_attention_cuda(
@@ -139,8 +151,9 @@ def flash_attention_cuda(
     -> (B, Tq, H, Dh) in q's type.
 
     On CUDA tensors: checks the arguments, launches the instantiation for
-    ``point`` on the current stream, checks the launch status and counts
-    the launch in ``flash_attention_cuda.launches``. On CPU tensors: the
+    ``point`` and q's head dim on the current stream, checks the launch
+    status and counts the launch in ``flash_attention_cuda.launches`` (and
+    ``.launches_by_head_dim``). On CPU tensors: the
     plain version.
     """
     if not q.is_cuda:
@@ -157,10 +170,10 @@ def flash_attention_cuda(
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Tq, H, Dh = q.shape
     _, Tkv, Hk, _ = k.shape
-    if k.shape[0] != B or k.shape[3] != Dh or Dh != HEAD_DIM or H % Hk:
+    if k.shape[0] != B or k.shape[3] != Dh or Dh not in HEAD_DIMS or H % Hk:
         raise ValueError(
             f"unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}: the "
-            f"kernel takes Dh = {HEAD_DIM} and H a multiple of Hk")
+            f"kernel takes Dh in {HEAD_DIMS} and H a multiple of Hk")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention_cuda takes contiguous tensors")
     if min(B, Tq, Tkv) < 1 or max(q.numel(), k.numel()) >= 2**62 \
@@ -175,14 +188,18 @@ def flash_attention_cuda(
     scale = float(scale if scale is not None else Dh ** -0.5)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    lib.launch(symbol(point, Tq, Tkv), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    lib.launch(symbol(point, Tq, Tkv, Dh), q.data_ptr(), k.data_ptr(), v.data_ptr(),
                out.data_ptr(), B, Tq, Tkv, H, Hk, int(bool(causal)), int(q_offset),
                scale, lookahead, stream)
     flash_attention_cuda.launches += 1
+    by_dh = flash_attention_cuda.launches_by_head_dim
+    by_dh[Dh] = by_dh.get(Dh, 0) + 1
     return out
 
 
 flash_attention_cuda.launches = 0
+#: the launches above, split by head dim
+flash_attention_cuda.launches_by_head_dim = {}
 
 
 def flash_attention_plain(
@@ -227,7 +244,6 @@ class FlashAttentionFunction(torch.autograd.Function):
         return (*(next(grads) if t.requires_grad else None for t in inputs), None)
 
 
-__all__ = ["BLOCK_KV", "BLOCK_Q", "FlashAttentionFunction", "HEAD_DIM", "SMEM_BYTES",
-           "SPLIT_BYTES", "STAGE_BYTES", "build_kernels",
-           "flash_attention_cuda", "flash_attention_plain", "instantiations",
-           "smem_bytes", "symbol"]
+__all__ = ["BLOCK_KV", "BLOCK_Q", "FlashAttentionFunction", "HEAD_DIMS", "SMEM_BYTES",
+           "build_kernels", "flash_attention_cuda", "flash_attention_plain",
+           "instantiations", "smem_bytes", "split_bytes", "stage_bytes", "symbol"]

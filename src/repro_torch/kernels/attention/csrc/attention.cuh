@@ -4,8 +4,11 @@
 //   out[b, t, h, :] = softmax_s(q[b, t, h, :] . k[b, s, h / G, :] * scale
 //                               + mask) @ v[b, :, h / G, :]
 //
-//   q: (B, Tq, H, Dh), k, v: (B, Tkv, Hk, Dh), out like q; fp32; Dh = 128;
-//   G = H / Hk.
+//   q: (B, Tq, H, Dh), k, v: (B, Tkv, Hk, Dh), out like q; fp32; G = H / Hk;
+//   Dh a template parameter (a multiple of 8; the library instantiates
+//   16, 64 and 128, the head dims of the configs the port serves).
+//   The Pallas kernel's BlockSpecs take the whole Dh, so it runs at any
+//   Dh; here the launcher refuses a Dh it has no instantiation for.
 //
 // Replaces the Pallas TPU kernel `flash_attention_pallas` (`_fa_kernel`,
 // src/repro/kernels/attention/attention.py). It computes what that kernel
@@ -35,16 +38,21 @@
 //   * 256 threads, 8 warps; the block walks its q tile 128 rows at a time,
 //     two 64-row passes side by side, and each warp owns 16 q rows. A
 //     warp splits its q rows once and keeps them in registers as TF32
-//     big and small A fragments (128 registers a thread), beside its
-//     16 x 128 fp32 output accumulator (64) and m and l for its rows. At
-//     255 registers ptxas spills 364–392 bytes a thread; splitting q at
-//     each use instead spilled less (124–180) and ran 8 % slower.
+//     big and small A fragments (Dh registers a thread), beside its
+//     16 x Dh fp32 output accumulator (Dh / 2) and m and l for its rows.
+//     At Dh 128 and 255 registers ptxas spills 364–392 bytes a thread;
+//     splitting q at each use instead spilled less (124–180) and ran 8 %
+//     slower. At Dh 64 and 16 the fragments take 96 and 24 registers.
+//     At Dh 16 the score product is two k8 steps and P V two n8 tiles:
+//     every fragment loop runs over Dh / 8.
 //   * K and V are staged 32 keys at a time into a ring of `lookahead + 1`
-//     shared-memory stages (32 kB each) by cp.async, 16 bytes a copy where
+//     shared-memory stages (256 * Dh bytes each, 32 kB at Dh 128) by
+//     cp.async, 16 bytes a copy where
 //     k and v are 16-byte aligned, 4 bytes otherwise; keys past Tkv are
 //     zero-filled. Once a slice has landed, the block splits it into a
-//     split slice of (big, small) TF32 pairs (66 kB, rows padded to 132
-//     pairs, so the 8-byte fragment loads hit 32 banks): every element is
+//     split slice of (big, small) TF32 pairs (66 kB at Dh 128, rows
+//     padded to Dh + 4 pairs, so the 8-byte fragment loads hit 32 banks
+//     at every Dh that is a multiple of 8): every element is
 //     split once, not once for each of the 8 warps that read it. Two
 //     __syncthreads a slice.
 //   * For each slice a warp forms its 16 x 32 scores S = Q K^T in
@@ -60,9 +68,9 @@
 //     same function, rounded in another order. BKV selects the
 //     instantiation (and the plain version's blocks) and changes no
 //     slice the kernel computes.
-//   * Registers, not shared memory, bound the warps an SM holds: the
-//     q fragments and the accumulator take 192 of a thread's 255, so a
-//     block of 8 warps fills an SM, and the kernel is bound by latency
+//   * Registers, not shared memory, bound the warps an SM holds: at Dh
+//     128 the q fragments and the accumulator take 192 of a thread's 255,
+//     so a block of 8 warps fills an SM, and the kernel is bound by latency
 //     more than by the tensor cores' rate.
 //   * Each ring depth is its own kernel (template parameter LA), picked by
 //     the launcher: with the depth a run-time value and wait_group's
@@ -84,19 +92,29 @@ namespace attention {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kDh = 128;            // head dim
 constexpr int kRows = 16;           // q rows a warp
 constexpr int kIterRows = kWarps * kRows;  // 128 q rows an iteration
 constexpr int kKs = 32;             // keys a slice
-constexpr int kStageFloats = 2 * kKs * kDh;  // a slice of K and of V, as copied
-constexpr int kLdS = kDh + 4;       // split rows, in (big, small) pairs
 constexpr float kNegInf = -1e30f;
+
+// a slice of K and of V as copied, in floats, at head dim DH
+template <int DH>
+__host__ __device__ constexpr int stage_floats() { return 2 * kKs * DH; }
+// split rows, in (big, small) pairs
+template <int DH>
+__host__ __device__ constexpr int split_ld() { return DH + 4; }
 
 // shared memory of one ring stage and of the split slice, in bytes (the
 // tuning space's Hopper capacity rule counts lookahead + 1 stages and one
 // split slice)
-constexpr size_t kStageBytes = sizeof(float) * kStageFloats;
-constexpr size_t kSplitBytes = sizeof(uint2) * 2 * kKs * kLdS;
+template <int DH>
+__host__ __device__ constexpr size_t stage_bytes() { return sizeof(float) * stage_floats<DH>(); }
+template <int DH>
+__host__ __device__ constexpr size_t split_bytes() { return sizeof(uint2) * 2 * kKs * split_ld<DH>(); }
+template <int DH>
+__host__ __device__ constexpr size_t smem_bytes(int lookahead) {
+  return (size_t)(lookahead + 1) * stage_bytes<DH>() + split_bytes<DH>();
+}
 
 // x[0..3] as four (big, small) TF32 pairs at dst[0..3]
 __device__ __forceinline__ void split4(const float* src, uint2* dst) {
@@ -113,13 +131,17 @@ __device__ __forceinline__ void split4(const float* src, uint2* dst) {
 // One kernel per ring depth LA (= lookahead), picked by the launcher: the
 // ring's slot arithmetic and the wait_group count are compile-time
 // constants, and each depth gets its own register allocation.
-template <int BQ, int BKV, int LA>
+template <int DH, int BQ, int BKV, int LA>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, int B, int Tq,
              int Tkv, int H, int Hk, int causal, int q_offset, float scale) {
   static_assert(BQ % kIterRows == 0 && BKV % kKs == 0,
                 "blocks are multiples of the 128-row iteration and the 32-key slice");
+  static_assert(DH % 8 == 0 && DH >= 8, "the head dim is a multiple of the k8 step");
+  constexpr int kDh = DH;
+  constexpr int kStageFloats = stage_floats<DH>();
+  constexpr int kLdS = split_ld<DH>();
   extern __shared__ __align__(16) float smem[];
   uint2* const k2 = reinterpret_cast<uint2*>(smem + (LA + 1) * kStageFloats);
   uint2* const v2 = k2 + kKs * kLdS;
@@ -327,46 +349,53 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // Host launcher for one instantiation: on `stream`, allocates nothing,
 // does not synchronise; returns the launch status (cudaGetLastError),
 // which the Python wrapper turns into an exception.
-template <int BQ, int BKV, int LA>
+template <int DH, int BQ, int BKV, int LA>
 int launch_depth(const float* q, const float* k, const float* v, float* out, int B,
                  int Tq, int Tkv, int H, int Hk, int causal, int q_offset, float scale,
                  void* stream) {
-  const size_t smem = (size_t)(LA + 1) * kStageBytes + kSplitBytes;
+  const size_t smem = smem_bytes<DH>(LA);
   // above 48 KB, dynamic shared memory must be opted in to; the attribute
   // belongs to the current device, so it is set on every launch
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<BQ, BKV, LA>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_kernel<DH, BQ, BKV, LA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (long long)B * H * ((Tq + BQ - 1) / BQ);
   if (blocks <= 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_kernel<BQ, BKV, LA><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  flash_kernel<DH, BQ, BKV, LA><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <int BQ, int BKV>
+template <int DH, int BQ, int BKV>
 int launch(const float* q, const float* k, const float* v, float* out, int B,
            int Tq, int Tkv, int H, int Hk, int causal, int q_offset, float scale,
            int lookahead, void* stream) {
   switch (lookahead) {
-    case 0: return launch_depth<BQ, BKV, 0>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
-    case 1: return launch_depth<BQ, BKV, 1>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
-    case 2: return launch_depth<BQ, BKV, 2>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
+    case 0: return launch_depth<DH, BQ, BKV, 0>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
+    case 1: return launch_depth<DH, BQ, BKV, 1>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
+    case 2: return launch_depth<DH, BQ, BKV, 2>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace attention
 
-// One exported C symbol per instantiation:
-//   int attention_bq<BQ>_bkv<BKV>(q, k, v, out, B, Tq, Tkv, H, Hk, causal,
-//                                 q_offset, scale, lookahead, stream)
-#define ATTENTION_INSTANTIATE(BQ, BKV)                                                  \
-  extern "C" int attention_bq##BQ##_bkv##BKV(                                           \
+// Two exported C symbols per instantiation:
+//   int attention_dh<DH>_bq<BQ>_bkv<BKV>(q, k, v, out, B, Tq, Tkv, H, Hk,
+//                                        causal, q_offset, scale, lookahead,
+//                                        stream)
+//   long long attention_dh<DH>_bq<BQ>_bkv<BKV>_smem(lookahead): the dynamic
+//     shared memory of one block, as the launcher asks for it
+#define ATTENTION_INSTANTIATE(DH, BQ, BKV)                                              \
+  extern "C" int attention_dh##DH##_bq##BQ##_bkv##BKV(                                  \
       const float* q, const float* k, const float* v, float* out, int B, int Tq,        \
       int Tkv, int H, int Hk, int causal, int q_offset, float scale, int lookahead,     \
       void* stream) {                                                                   \
-    return attention::launch<BQ, BKV>(q, k, v, out, B, Tq, Tkv, H, Hk, causal,          \
-                                      q_offset, scale, lookahead, stream);              \
+    return attention::launch<DH, BQ, BKV>(q, k, v, out, B, Tq, Tkv, H, Hk, causal,      \
+                                          q_offset, scale, lookahead, stream);          \
+  }                                                                                     \
+  extern "C" long long attention_dh##DH##_bq##BQ##_bkv##BKV##_smem(int lookahead) {     \
+    return (long long)attention::smem_bytes<DH>(lookahead);                             \
   }

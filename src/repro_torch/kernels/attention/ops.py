@@ -17,10 +17,10 @@ profile) the validator is the TPU kernel's VMEM footprint: its q, k, v
 and score blocks and the accumulators. On a CUDA device
 (``hopper=True``) it checks what the Hopper kernel holds in shared
 memory: its ring of ``lookahead + 1`` stages of 32 keys of K and V and
-the split slice
-(:func:`~repro_torch.kernels.attention.attention.smem_bytes`, 98–162 kB)
-whatever the blocks, at the one head dim the kernel is written for
-(128).
+the split slice, whatever the blocks
+(:func:`~repro_torch.kernels.attention.attention.smem_bytes`: 98–162 kB at
+Dh 128, 50–82 kB at 64, 14–22 kB at 16), at the head dims the library is
+instantiated for (16, 64, 128); any other Dh has no valid point.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from repro_torch.core.profiles import TPU_V5E, DeviceProfile
 from repro_torch.core.tuning_space import Param, Point, TuningSpace
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.attention.attention import (
-    HEAD_DIM, build_kernels, flash_attention_cuda, flash_attention_plain,
+    HEAD_DIMS, build_kernels, flash_attention_cuda, flash_attention_plain,
     smem_bytes, symbol)
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.catalog import (
@@ -196,7 +196,7 @@ def make_space(
 
     def validator(p: Point) -> bool:
         if hopper:
-            return Dh == HEAD_DIM and smem_bytes(p) <= vmem_kb * 1024
+            return Dh in HEAD_DIMS and smem_bytes(p, Dh) <= vmem_kb * 1024
         bq, bkv = min(p["block_q"], Tq), min(p["block_kv"], Tkv)
         words = bq * Dh * 2 + 2 * bkv * Dh + bq * bkv + 2 * bq
         return words * 4 <= vmem_kb * 1024
@@ -236,7 +236,8 @@ def attention_cost_model(
     return t
 
 
-def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int):
+def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int,
+             Dh: int):
     """The variant serving ``point``: the hand kernel on CUDA (its
     instantiation resolved now, so a missing one raises here), the plain
     version on the CPU."""
@@ -244,7 +245,7 @@ def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int
     lib = None
     if device.type == "cuda":
         lib = build_kernels(device)
-        lib.resolve(symbol(pt, Tq, Tkv))
+        lib.resolve(symbol(pt, Tq, Tkv, Dh))
 
     def fn(q, k, v):
         return flash_attention_cuda(q, k, v, pt, causal=causal, lib=lib)
@@ -255,7 +256,8 @@ def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int
 # ---------------------------------------------------------- kernel catalog
 def _catalog_generate(point: Point, spec: dict[str, Any]):
     return _variant(point, resolve_device(spec.get("device")),
-                    bool(spec.get("causal", True)), spec["Tq"], spec["Tkv"])
+                    bool(spec.get("causal", True)), spec["Tq"], spec["Tkv"],
+                    spec["Dh"])
 
 
 def _extract_spec(q, k, v, **overrides: Any) -> dict[str, Any]:

@@ -14,7 +14,10 @@ kernel's ``generate`` for it: on a CUDA device that resolves the point's
 instantiation in a library built once (CUDA C++) or compiles the point's
 binary (Triton), so the real generation cost lands in
 ``generation_time_s``. A failure to build or launch raises; nothing falls
-back to a plain version.
+back to a plain version. A kernel whose variants compile at run time
+(Triton's lintra) can have that compile run in a child process by the
+compile farm's ``"process"`` backend (:meth:`KernelCompilette.process_payload`,
+:func:`compile_in_process`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import dataclasses
 import hashlib
 import importlib
 import os
+import time
 from typing import Any, Callable, Mapping
 
 import torch
@@ -36,6 +40,7 @@ __all__ = [
     "KernelDef",
     "KernelCompilette",
     "KernelCatalog",
+    "compile_in_process",
     "discover_kernels",
     "example_fill",
     "get_catalog",
@@ -134,6 +139,12 @@ class KernelDef:
     # (kernels accumulating in low precision declare looser ones)
     oracle: Callable[..., Any] | None = None
     tolerance: Mapping[str, float] | None = None
+    # True where generating a CUDA variant compiles a binary at run time
+    # (Triton): the compile farm's "process" backend then runs that
+    # compile in a child process, which fills the on-disk cache the
+    # parent's own generate loads from. The CUDA C++ families resolve a
+    # symbol of a library built once: nothing to offload.
+    process_compile: bool = False
 
 
 class KernelCompilette(Compilette):
@@ -211,6 +222,30 @@ class KernelCompilette(Compilette):
                 tag=dict(point))
         return self.defn.generate(dict(point), spec)
 
+    # ----------------------------------------------------- process backend
+    def process_payload(self, point: Point,
+                        specialization: Mapping[str, Any]) -> tuple | None:
+        """Picklable compile job for the farm's ``"process"`` backend.
+
+        ``(module, attr, kwargs)`` naming :func:`compile_in_process`, which
+        re-resolves this kernel from the child's own catalog and compiles
+        the point there into Triton's on-disk cache (the directory is
+        passed along: a cold cache set after the pool spawned is not in
+        the child's environment). ``None`` (compile in-thread) for the
+        virtual backend, for a spec off the card and for a kernel whose
+        generation compiles nothing (``KernelDef.process_compile``).
+        """
+        spec = {**self.spec, **dict(specialization)}
+        if (self.virtual is not None or not self.defn.process_compile
+                or not spec_on_cuda(spec)):
+            return None
+        return ("repro_torch.kernels.catalog", "compile_in_process", {
+            "kernel": self.defn.name,
+            "point": dict(point),
+            "spec": spec,
+            "triton_cache_dir": os.environ.get("TRITON_CACHE_DIR"),
+        })
+
     # ------------------------------------------------------------- helpers
     def has_valid_points(self) -> bool:
         """False when every point is a hole at this spec (untunable shape)."""
@@ -221,6 +256,25 @@ class KernelCompilette(Compilette):
         if self.defn.example_args is None:
             raise ValueError(f"kernel {self.name!r} declares no example args")
         return self.defn.example_args(self.spec)
+
+
+def compile_in_process(kernel: str, point: Mapping[str, Any],
+                       spec: Mapping[str, Any],
+                       triton_cache_dir: str | None = None) -> float:
+    """Child-process entry for the compile farm's ``"process"`` backend.
+
+    Resolves ``kernel`` from this process's own catalog and generates
+    ``point`` — the compiled binary itself stays here (a loaded kernel
+    does not pickle), but the compile fills Triton's on-disk cache under
+    ``triton_cache_dir``, and the returned wall seconds let the parent
+    charge the true compile cost.
+    """
+    if triton_cache_dir is not None:
+        os.environ["TRITON_CACHE_DIR"] = triton_cache_dir
+    comp = get_catalog().compilette(kernel, spec)
+    start = time.perf_counter()
+    comp._build(dict(point))
+    return time.perf_counter() - start
 
 
 class KernelCatalog:

@@ -13,7 +13,8 @@ All tuning knobs are the canonical flag set, declared once by
 :meth:`repro_torch.TuningConfig.add_flags`; the CLI builds one
 :class:`repro_torch.TuningSession` and every request rides it, so later
 requests reuse the variants earlier ones discovered (and ``--registry``
-persists them across restarts). ``--kernel-tuning kernel`` tunes the
+persists them across restarts: a restarted process prints a ``warm``
+line for each kernel handle it started from a persisted best). ``--kernel-tuning kernel`` tunes the
 model's matmul / attention / rmsnorm / decode_attention kernels as
 independent session-managed compilettes. Request ``req``'s prompt is
 drawn from ``torch.Generator`` seeded with ``req``.
@@ -46,16 +47,28 @@ def parse_args(argv=None):
     return args, TuningConfig.from_flags(args, base=base)
 
 
-def serve(args, tcfg, *, on_request=None) -> list[dict]:
-    """Serve ``args.requests`` requests; returns each request's result.
+def make_session(args, tcfg):
+    """The session every request rides, keyed by the serving device's
+    fingerprint; ``None`` when ``tcfg`` does not tune (kernel_tuning="off"
+    disables tuning even with --autotune: no session, and generate() emits
+    no "autotune" stats block)."""
+    from repro_torch.api import TuningSession
+    from repro_torch.core.persistence import device_fingerprint
+    from repro_torch.interop import resolve_device
 
-    ``on_request(req, out)`` runs after each request.
+    if not tcfg.active:
+        return None
+    return TuningSession(tcfg, device=device_fingerprint(resolve_device(args.device)))
+
+
+def serve(args, tcfg, session, *, on_request=None) -> list[dict]:
+    """Serve ``args.requests`` requests under ``session`` (from
+    :func:`make_session`; the caller closes it); returns each request's
+    result. ``on_request(req, out)`` runs after each request.
     """
     import torch
 
-    from repro_torch.api import TuningSession
     from repro_torch.configs import get_config
-    from repro_torch.core.persistence import device_fingerprint
     from repro_torch.interop import resolve_device
     from repro_torch.runtime.serve_loop import ServeConfig, generate
 
@@ -64,24 +77,16 @@ def serve(args, tcfg, *, on_request=None) -> list[dict]:
     if args.reduced:
         cfg = cfg.reduced()
     serve_cfg = ServeConfig(max_new_tokens=args.tokens, tuning=tcfg)
-    # kernel_tuning="off" disables tuning even with --autotune: no
-    # session, and generate() emits no "autotune" stats block
-    session = (TuningSession(tcfg, device=device_fingerprint(device))
-               if tcfg.active else None)
     outs = []
-    try:
-        for req in range(args.requests):
-            gen = torch.Generator(device=device).manual_seed(req)
-            batch = {"tokens": torch.randint(
-                0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
-                device=device)}
-            out = generate(cfg, batch, serve_cfg, session=session)
-            outs.append(out)
-            if on_request is not None:
-                on_request(req, out)
-    finally:
-        if session is not None:
-            session.close()
+    for req in range(args.requests):
+        gen = torch.Generator(device=device).manual_seed(req)
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
+            device=device)}
+        out = generate(cfg, batch, serve_cfg, session=session)
+        outs.append(out)
+        if on_request is not None:
+            on_request(req, out)
     return outs
 
 
@@ -101,17 +106,47 @@ def format_request(req: int, out: dict, args) -> str:
                  f"({lc['converged']} converged, "
                  f"{lc['retired']} retired)]")
         if args.kernel_tuning in ("kernel", "both"):
+            # "(warm)": the handle started from a registry's best
             per = ", ".join(
                 f"{name}:{k['strategy']}×{k['regenerations']}"
+                + ("(warm)" if k.get("warm_started") else "")
                 for name, k in sorted(a["kernels"].items())
                 if k.get("plane_managed"))
             line += f"\n        kernels: {per}"
     return line
 
 
+def format_warm(session) -> str:
+    """One line per kernel handle that started from a registry's best:
+    the point, and the regeneration whose evaluation re-validated it (a
+    warm handle proposes its persisted best first; with no regeneration
+    at all it serves that point as its reference)."""
+    lines = []
+    for h in (session.plane.handles() if session.plane is not None else ()):
+        if not h.warm_started:
+            continue
+        ex = h.tuner.explorer
+        at = next((i for i, (p, _s) in enumerate(ex.history, 1) if p == ex.base_point),
+                  None)
+        lines.append(
+            f"warm {h.name}: started from {ex.base_point}; "
+            + (f"re-validated at regeneration {at} of {len(ex.history)}" if at
+               else f"served as the reference, {len(ex.history)} regenerations"))
+    return "\n".join(lines)
+
+
 def main(argv=None) -> None:
     args, tcfg = parse_args(argv)
-    serve(args, tcfg, on_request=lambda req, out: print(format_request(req, out, args)))
+    session = make_session(args, tcfg)
+    try:
+        serve(args, tcfg, session,
+              on_request=lambda req, out: print(format_request(req, out, args)))
+        warm = format_warm(session) if session is not None else ""
+        if warm:
+            print(warm)
+    finally:
+        if session is not None:
+            session.close()
 
 
 if __name__ == "__main__":

@@ -27,7 +27,8 @@ eager call routes through the plane as in the reference. Otherwise:
     wrappers are called directly;
   * windowed, non-causal or offset attention, decode attention, and
     everything on the CPU, run the plain PyTorch versions (on the card,
-    the flash kernel raises for a head dim other than its 128);
+    the flash kernel takes heads of 16, 64 and 128 and raises at any
+    other head dim);
   * the projections and the MLP are ``torch.matmul`` in full fp32 (the
     reference leaves these einsums to XLA, outside any Pallas kernel),
     with TF32 off, PyTorch's default.

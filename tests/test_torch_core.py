@@ -178,7 +178,8 @@ def test_static_autotune_equal():
 
 def test_compile_farm_manual_batches_like_reference():
     """Manual mode: one ``run_pending`` completes one batch, as the
-    reference's farm does (the process backend is not ported)."""
+    reference's farm does; both packages take the same three modes and
+    refuse any other."""
     def run(core):
         clock = core.VirtualClock()
         space = jeuclid.make_space(256, 64, 32)
@@ -193,8 +194,13 @@ def test_compile_farm_manual_batches_like_reference():
         return batches, [t.gen_charge_s for t in tickets]
 
     assert run(tcore) == run(jcore)
-    with pytest.raises(ValueError):
-        tcore.CompileFarm("process")
+    for core in (tcore, jcore):
+        farm = core.CompileFarm("process", workers=2)
+        assert farm.stats()["mode"] == "process"
+        assert (farm.stats()["process_offloaded"], farm.stats()["process_fallbacks"]) == (0, 0)
+        farm.shutdown()
+        with pytest.raises(ValueError):
+            core.CompileFarm("processes")
 
 
 # ------------------------------------------------------------ touch points

@@ -90,7 +90,7 @@ def emulated(tmp_path_factory):
     (out / "cuda_emulator.h").write_text((Path(__file__).with_name("cuda_emulator.h")).read_text())
     wanted = {
         "matmul": [tmatmul.instantiations()[tmatmul.symbol(p)] for p in MATMUL_POINTS],
-        "attention": [tattn.instantiations()[tattn.symbol(p, 1024, 1024)]
+        "attention": [tattn.instantiations()[tattn.symbol(p, 1024, 1024, 128)]
                       for p in ATTENTION_POINTS],
         "rmsnorm": list(trmsnorm.instantiations().values()),
         "euclid": list(teuclid.instantiations(
@@ -169,7 +169,7 @@ def test_emulated_flash_attention_matches_its_plain_version(
     q = randn(B, Tq, H, 128, seed=1)
     k, v = randn(B, Tkv, Hk, 128, seed=2), randn(B, Tkv, Hk, 128, seed=3)
     out = torch.full_like(q, float("nan"))
-    launch(emulated["attention"], tattn.symbol(point, Tq, Tkv), tattn._ARGTYPES,
+    launch(emulated["attention"], tattn.symbol(point, Tq, Tkv, 128), tattn._ARGTYPES,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            B, Tq, Tkv, H, Hk, causal, q_offset, 128 ** -0.5, 1, None)
     want = tattn.flash_attention_plain(q, k, v, point, causal=bool(causal),
@@ -322,7 +322,7 @@ def test_emulated_flash_attention_ring_depths(emulated, lookahead, aligned):
     v = randn(n + shift, seed=6)[shift:].view(B, Tkv, Hk, 128)
     assert (k.data_ptr() % 16 == 0) == aligned
     out = torch.full_like(q, float("nan"))
-    launch(emulated["attention"], tattn.symbol(point, Tq, Tkv), tattn._ARGTYPES,
+    launch(emulated["attention"], tattn.symbol(point, Tq, Tkv, 128), tattn._ARGTYPES,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            B, Tq, Tkv, H, Hk, 1, q_offset, 128 ** -0.5, lookahead, None)
     want = tattn.flash_attention_plain(q, k, v, point, q_offset=q_offset)

@@ -119,12 +119,12 @@ def test_attention_wrapper_on_cpu_and_block_resolution():
     assert tattn_kernel.flash_attention_cuda.launches == before
     # a block clamped to the sequence is served by the smallest
     # instantiation covering it; any other block has none
-    assert tattn_kernel.symbol({"block_q": 512, "block_kv": 512}, 512, 512) == \
-        "attention_bq512_bkv512"
-    assert tattn_kernel.symbol({"block_q": 300, "block_kv": 1024}, 300, 700) == \
-        "attention_bq512_bkv1024"
+    assert tattn_kernel.symbol({"block_q": 512, "block_kv": 512}, 512, 512, 128) == \
+        "attention_dh128_bq512_bkv512"
+    assert tattn_kernel.symbol({"block_q": 300, "block_kv": 1024}, 300, 700, 128) == \
+        "attention_dh128_bq512_bkv1024"
     with pytest.raises(KeyError):
-        tattn_kernel.symbol({"block_q": 200, "block_kv": 128}, 1000, 1000)
+        tattn_kernel.symbol({"block_q": 200, "block_kv": 128}, 1000, 1000, 128)
 
 
 # ------------------------------------------------- spaces and capacities
@@ -171,7 +171,7 @@ def test_lm_kernels_have_valid_points_on_the_card_at_full_width():
         assert valid
         for p in valid:
             sym = (tmatmul_kernel.symbol(p) if space is mm
-                   else tattn_kernel.symbol(p, 512, 512))
+                   else tattn_kernel.symbol(p, 512, 512, 128))
             assert sym in symbols
     assert tmatmul_kernel.SMEM_BYTES <= cap * 1024
     assert tattn_kernel.SMEM_BYTES <= cap * 1024
@@ -231,7 +231,7 @@ def test_lm_instantiation_units():
     """One instantiation line per symbol, dealt over the units of one
     library with its error-string unit."""
     for mod, macro, count in ((tmatmul_kernel, "MATMUL_INSTANTIATE", 108),
-                              (tattn_kernel, "ATTENTION_INSTANTIATE", 15),
+                              (tattn_kernel, "ATTENTION_INSTANTIATE", 45),
                               (trmsnorm_kernel, "RMSNORM_INSTANTIATE", 8)):
         inst = mod.instantiations()
         assert len(inst) == count == len(set(inst.values()))
@@ -275,7 +275,9 @@ def test_hopper_capacity_rule_counts_the_ring_at_the_points_lookahead(family):
             2048, 11008, 4096, vmem_kb=kb, hopper=True)
         point = dict(tmatmul.DEFAULT_POINT)
     elif family == "attention":
-        footprint, most = tattn_kernel.smem_bytes, tattn_kernel.SMEM_BYTES
+        # deepseek-7b's heads, Dh 128
+        footprint = lambda p: tattn_kernel.smem_bytes(p, 128)  # noqa: E731
+        most = tattn_kernel.SMEM_BYTES
         space_at = lambda kb: tattn.make_space(  # noqa: E731
             512, 512, 128, vmem_kb=kb, hopper=True)
         point = dict(tattn.DEFAULT_POINT)

@@ -35,14 +35,9 @@ def mods(pkg):
 
 
 def comparable(stats):
-    """stats() as plain data, without the compile farm's counters of its
-    ``process`` backend, which the port does not have yet (both stay 0
-    in the reference's runs here)."""
-    out = json.loads(json.dumps(stats, sort_keys=True, default=str))
-    gen = out.get("generation", {})
-    for key in ("process_fallbacks", "process_offloaded"):
-        assert gen.pop(key, 0) == 0
-    return out
+    """stats() as plain data (the compile farm's ``process`` counters
+    included: both packages report them)."""
+    return json.loads(json.dumps(stats, sort_keys=True, default=str))
 
 
 def plane_script(pkg, strategies):
@@ -232,11 +227,18 @@ def test_config_from_env_identical():
 
 
 def test_process_backend_is_refused_and_auto_never_picks_it():
+    """``compile_backend="process"`` builds a session whose farm runs in
+    process mode (the raise of the unported backend is gone); ``auto``
+    still picks threads on a real clock and manual batches on a virtual
+    one, never processes."""
     from repro_torch.api import TuningConfig, TuningSession
     from repro_torch.core import VirtualClock
 
-    with pytest.raises(NotImplementedError, match="process"):
-        TuningSession(TuningConfig(compile_backend="process"))
+    session = TuningSession(TuningConfig(compile_backend="process"), device="test:v")
+    gen = session.stats()["generation"]
+    assert (gen["mode"], gen["process_offloaded"], gen["process_fallbacks"]) == \
+        ("process", 0, 0)
+    session.close()
     session = TuningSession(TuningConfig(compile_backend="auto"), device="test:v")
     assert session.stats()["generation"]["mode"] == "thread"
     session.close()
@@ -246,10 +248,32 @@ def test_process_backend_is_refused_and_auto_never_picks_it():
 
 
 def test_session_replay_waits_for_its_port():
+    """``session.replay`` delegates to the ported harness: a one-tenant
+    trace re-served on a virtual clock reports what the reference's
+    session reports, and a session on the wall clock is refused."""
     from repro_torch.api import TuningConfig, TuningSession
+    from repro_torch.configs import get_config
+    from repro_torch.core import VirtualClock
 
+    def run(rp, cfg):
+        sc = rp.Scenario(name="tiny", arrival=rp.poisson_arrivals,
+                         prompt_mix=rp.fixed_mix(64), decode_mix=rp.fixed_mix(2),
+                         utilization=0.4, target_requests=24)
+        trace = rp.make_trace(sc, cfg.name, 50.0, seed=3)
+        clock = (VirtualClock() if rp is treplay
+                 else importlib.import_module("repro.core").VirtualClock())
+        session = rp.replay_session(clock)
+        try:
+            return comparable(session.replay(trace, {cfg.name: cfg}))
+        finally:
+            session.close()
+
+    jreplay = importlib.import_module("repro.bench.replay")
+    treplay = importlib.import_module("repro_torch.bench.replay")
+    jcfg = jax_config("deepseek-7b").reduced()
+    assert run(treplay, get_config("deepseek-7b").reduced()) == run(jreplay, jcfg)
     session = TuningSession(TuningConfig(), device="test:v")
-    with pytest.raises(NotImplementedError, match="bench/replay.py"):
+    with pytest.raises(TypeError, match="VirtualClock"):
         session.replay(trace=None)
     session.close()
 

@@ -145,12 +145,17 @@ def _imported_modules(path: Path) -> set[str]:
     return mods
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("torch_*.py"))
+                         + sorted((ROOT / "benchmarks").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_the_jax_package(path):
+    """Nor, for the port's scripts, the reference scripts' helpers
+    (``benchmarks/common.py``)."""
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "common"), f"{path} imports {mod}"
+        assert mod != "benchmarks.common", f"{path} imports {mod}"
 
 
 def test_importing_the_bench_leaves_jax_out():

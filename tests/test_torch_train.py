@@ -343,7 +343,7 @@ def test_every_training_attention_point_has_an_instantiation(T):
     assert points
     for p in points:
         point = {"block_q": min(p["attn_q_chunk"], T), "block_kv": min(p["attn_k_chunk"], T)}
-        assert tattn.symbol(point, T, T) in built, (p, T)
+        assert tattn.symbol(point, T, T, cfg.d_head) in built, (p, T)
     assert len(points) == {64: 1, 128: 4, 512: 12}[T]
 
 
