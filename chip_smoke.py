@@ -5,7 +5,7 @@ Run from the root of a checkout on a machine with one CUDA card::
     python3 chip_smoke.py
 
 It builds every CUDA library from the repository's sources (sm_90a; the
-four families in parallel), then drives the port's two paths, each with
+four families in parallel), then drives the port's paths, each with
 the kernels' launch counts set to 0 just before and read just after:
 
 1. the paper's Table 3 — ``repro_torch.bench.table3`` at the PARSEC
@@ -35,7 +35,22 @@ the kernels' launch counts set to 0 just before and read just after:
    compile farm's ``process`` backend compiling lintra's Triton binaries
    in spawned children, and the reduced serve example
    (``examples/torch_serve_lm.py``: heads of 16, so the flash kernel's
-   Dh 16 instantiations).
+   Dh 16 instantiations);
+5. the MoE, VLM and encoder-decoder families (phase ``families``), each
+   at full width under the serve CLI's session (``make_session``,
+   ``--autotune --kernel-tuning kernel``), the whole model through its
+   ``serve``, the ones cut in depth through ``serve_loop.generate``, each
+   model's weights freed before the next (FAMILY_RUNS): qwen3-moe-30b-a3b (128
+   experts top-8, heads of 64 over 4 kv heads) cut to 16 of its 48
+   layers, B 4, prompt 512, 32 tokens, 2 requests; llama4-scout-17b-a16e
+   (a shared expert, GQA group 5) cut to 2 of 48, 8 tokens; qwen2-vl-7b
+   (M-RoPE, group 7) cut to 4 of 28, with its 1024 patch embeddings and
+   512 tokens (prefill T 1536), 16 tokens; whisper-tiny whole (the
+   encoder's and cross-attention's non-causal calls over 1500 frames),
+   prompt 32, 32 tokens, 2 requests. No attention call of these models
+   may run the plain version. Then a profiled qwen3-moe prefill and 4
+   decode steps, and qwen3-moe's logits at full width, 2 layers, against
+   the CPU, the routing compared first.
 
 Then it holds each kernel against its plain PyTorch version (every
 instantiation at every ring depth at ragged shapes — for attention at
@@ -58,7 +73,7 @@ Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. Full results go to
 ``chiprun_out/chip_smoke.json``. ``--only build,check`` (any of
 ``build``, ``table3``, ``serve``, ``warm`` (after ``serve``), ``profile``,
-``front``, ``check``, ``logits``, ``train``, ``time``) runs a subset and
+``front``, ``families``, ``check``, ``logits``, ``train``, ``time``) runs a subset and
 prints no verdict: a quick look at a new
 kernel (``--only build,check,time`` times the kernels at DEFAULT_POINT
 where Table 3 has not run).
@@ -107,8 +122,39 @@ SERVE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel"
 #: the reduced serve example, as its command line would be called
 SERVE_EXAMPLE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel",
                       "--requests", "2"]
-PHASES = ("build", "table3", "serve", "warm", "profile", "front", "check", "logits",
-          "train", "time")
+PHASES = ("build", "table3", "serve", "warm", "profile", "front", "families", "check",
+          "logits", "train", "time")
+#: the families phase: each model at full width, its depth cut to what
+#: the card holds (None: all of it), served under the serve CLI's
+#: session with --kernel-tuning kernel (see run_family):
+#: (arch, layers, batch, prompt, new tokens, requests)
+FAMILY_RUNS = (
+    ("qwen3-moe-30b-a3b", 16, 4, 512, 32, 2),
+    ("llama4-scout-17b-a16e", 2, 4, 512, 8, 1),
+    ("qwen2-vl-7b", 4, 4, 512, 16, 1),
+    ("whisper-tiny", None, 4, 32, 32, 2),
+)
+#: the batch and prompt of every profiled request (profile_serve)
+PROFILE_BATCH, PROFILE_SEQ = 4, 512
+#: the decode steps of the families phase's profiled qwen3-moe request
+MOE_PROFILE_DECODE_STEPS = 4
+#: the flash kernel's calls on the families path, (B, Tq, Tkv, H, Hk, Dh):
+#: qwen3-moe's prefill (GQA group 8), llama4-scout's (group 5),
+#: qwen2-vl's (group 7, 1024 patches and 512 tokens), whisper-tiny's
+#: decoder prefill, encoder self-attention and cross-attention prefill
+FAMILY_ATTENTION_SHAPES = (
+    ("qwen3-moe prefill", (4, 512, 512, 32, 4, 64), True),
+    ("llama4-scout prefill", (4, 512, 512, 40, 8, 128), True),
+    ("qwen2-vl prefill", (4, 1536, 1536, 28, 4, 128), True),
+    ("whisper decoder prefill", (4, 32, 32, 6, 6, 64), True),
+    ("whisper encoder", (4, 1500, 1500, 6, 6, 64), False),
+    ("whisper cross-attention", (4, 32, 1500, 6, 6, 64), False),
+)
+#: the rmsnorm kernel's rows and widths on the families path: prefill's
+#: 2048 rows and decode's 4 at qwen3-moe's, llama4-scout's and qwen2-vl's
+#: d_model, and qwen2-vl's prefill of 6144 rows
+FAMILY_RMSNORM_SHAPES = ((2048, 2048), (4, 2048), (2048, 5120), (4, 5120),
+                         (2048, 3584), (4, 3584), (6144, 3584))
 #: the training path: deepseek-7b at full width cut to 2 layers, B 4, T 512
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 512
 TRAIN_STEPS, TRAIN_RESUME_STEPS = 12, 14
@@ -131,6 +177,17 @@ MATMUL_TOL = {"rtol": 2e-5, "atol": 1e-3}
 ATTENTION_TOL = {"rtol": 1e-5, "atol": 1e-5}
 RMSNORM_TOL = {"rtol": 1e-5, "atol": 1e-5}
 RMSNORM_BF16_TOL = {"rtol": 1e-2, "atol": 1e-2}
+#: prefill logits of a full-width, 2-layer model, card (hand kernels,
+#: cuBLAS fp32) against CPU (plain versions), same params and tokens:
+#: fp32 on both sides, sums in other orders (deepseek-7b read 3.6e-5 on
+#: logits of magnitude about 5). For qwen3-moe the CPU takes the card's
+#: expert choices (its own are compared first, see check_moe_logits), so
+#: the limit is the dense one.
+LOGIT_ATOL = 1e-3
+#: the card and the CPU may route a token to different experts only at a
+#: near-tie: the router's inputs agree to fp32 rounding (about 1e-6
+#: relative), which moves a probability by far less than this
+ROUTE_TIE = 1e-4
 #: the whole model's gradients, card (hand kernels, cuBLAS fp32) against
 #: CPU (plain versions), relative L2 error per parameter leaf: fp32 on
 #: both sides, sums in other orders (about 1e-6); a TF32 product keeps
@@ -579,10 +636,14 @@ def run_warm(serve_report) -> dict:
     cold = [n for n in serve_report["plane_handles"] if not handles.get(n, {}).get("warm")]
     if cold:
         fail(f"the second serve process did not warm-start {cold}: {kernels.group(1)}")
-    for m in re.finditer(r"warm (\w+): started from (\{.*?\}); (re-validated at "
-                         r"regeneration (\d+)|served as the reference)", res.stdout):
+    # a handle that regenerated at all must have evaluated its persisted best
+    # first; only one that never regenerated serves it as the reference
+    for m in re.finditer(r"warm (\w+): started from (\{.*?\}); (?:re-validated at "
+                         r"regeneration (\d+)|served as the reference, (\d+) "
+                         r"regenerations)", res.stdout):
         handles.setdefault(m.group(1), {})["start"] = m.group(2)
-        handles[m.group(1)]["revalidated_at"] = int(m.group(4)) if m.group(4) else None
+        handles[m.group(1)]["revalidated_at"] = (
+            int(m.group(3)) if m.group(3) else None if m.group(4) == "0" else "never")
     late = {n: h.get("revalidated_at", "no line") for n, h in handles.items()
             if h.get("revalidated_at", "no line") not in (None, 1)}
     if late:
@@ -721,13 +782,268 @@ def run_front(dev) -> dict:
             "table4": t4, "process_backend": process, "serve_example": serve_example}
 
 
-def profile_serve(dev, decode_steps: int = 8) -> dict:
+def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
+               requests: int) -> dict:
+    """One model of the families phase at full width (``layers`` of its
+    layers, or all) under the serve CLI's session (``make_session``, with
+    ``--autotune --kernel-tuning kernel``). A whole model goes through the
+    CLI's ``serve``; a model cut in depth through ``serve_loop.generate``
+    with the prompts ``serve`` draws, and for the VLM
+    ``cfg.vision_patches`` patch embeddings, so that the cache and
+    positions the loop sizes by them hold no gap (``serve`` passes 16, as
+    the reference does: ROADMAP Queue 3, R2). Launch counts, the peak
+    memory and the calls of the plain attention in the layers are read
+    around the requests: the model's attention without a window must
+    never run the plain version."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention.attention import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import layers as L
+    from repro_torch.runtime.serve_loop import ServeConfig, generate
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+    args, tcfg = serve_cli.parse_args(
+        ["--arch", arch, "--autotune", "--kernel-tuning", "kernel", "--batch", str(batch),
+         "--prompt-len", str(prompt), "--tokens", str(tokens), "--requests", str(requests)])
+    rows = []
+
+    def on_request(req, out):
+        a = out["autotune"]
+        per = {n: {"regenerations": k["regenerations"], "explored": k["n_explored"],
+                   "best_point": k["best_point"]}
+               for n, k in sorted(a["kernels"].items())}
+        rows.append({"request": req, "prefill_s": out["prefill_s"],
+                     "decode_s": out["decode_s"],
+                     "decode_tok_s": out["decode_tokens_per_s"],
+                     "regenerations": a["regenerations"], "swaps": a["swaps"],
+                     "overhead_pct": 100 * a["overhead_frac"],
+                     "quarantined": a["quarantined"], "kernels": per})
+        print(f"  {arch} " + serve_cli.format_request(req, out, args))
+
+    plain_calls = []
+    real_plain = L.flash_attention_torch
+
+    def counted_plain(q, k, v, **kw):
+        plain_calls.append((tuple(q.shape), tuple(k.shape), kw.get("window")))
+        return real_plain(q, k, v, **kw)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    session = serve_cli.make_session(args, tcfg)
+    L.flash_attention_torch = counted_plain
+    try:
+        reset_lm_counts()
+        t0 = time.perf_counter()
+        if layers is None:
+            serve_cli.serve(args, tcfg, session, on_request=on_request)
+        else:
+            serve_cfg = ServeConfig(max_new_tokens=tokens, tuning=tcfg)
+            for req in range(requests):
+                b = {"tokens": torch.randint(
+                    0, cfg.vocab, (batch, prompt),
+                    generator=torch.Generator(device=dev).manual_seed(req), device=dev)}
+                if cfg.family == "vlm":
+                    b["vision"] = torch.randn(
+                        batch, cfg.vision_patches, cfg.d_model,
+                        generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev) * 0.05
+                on_request(req, generate(cfg, b, serve_cfg, session=session))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = lm_counts()
+        by_dh = dict(sorted(flash_attention_cuda.launches_by_head_dim.items()))
+        rms_by_rows = dict(sorted(rmsnorm_cuda.launches_by_rows.items()))
+    finally:
+        L.flash_attention_torch = real_plain
+        session.close()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {arch} at full width, {cfg.n_layers} of {full.n_layers} layers: {seconds:.1f} s, "
+          f"launches {launches}, flash attention by head dim {by_dh}, rmsnorm by rows "
+          f"{rms_by_rows}; plain attention calls {len(plain_calls)}; peak "
+          f"{peak_gb:.2f} GB")
+    if plain_calls:
+        fail(f"{arch}: attention ran the plain version on the card: {plain_calls[:4]}")
+    if by_dh.get(cfg.d_head, 0) == 0:
+        fail(f"{arch} never launched the flash kernel at its head dim {cfg.d_head}")
+    faulted = [r["request"] for r in rows if r["quarantined"]]
+    if faulted:
+        fail(f"{arch}: variants were quarantined in requests {faulted}")
+    return {"arch": arch, "n_layers": cfg.n_layers, "of_layers": full.n_layers,
+            "batch": batch, "prompt": prompt, "tokens": tokens,
+            "prefill_tokens": prompt + (cfg.vision_patches if cfg.family == "vlm" else 0),
+            "params": cfg.n_params(), "seconds": seconds, "requests": rows,
+            "launches": launches, "attention_launches_by_head_dim": by_dh,
+            "rmsnorm_launches_by_rows": rms_by_rows, "plain_attention_calls": len(plain_calls),
+            "max_memory_allocated_gb": peak_gb}
+
+
+def run_families(dev) -> dict:
+    """The MoE, VLM and encoder-decoder families on the card (FAMILY_RUNS),
+    each model's weights freed before the next; then one profiled
+    qwen3-moe prefill and MOE_PROFILE_DECODE_STEPS decode steps; then the
+    qwen3-moe logits against the CPU (check_moe_logits)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    out = {"runs": {}}
+    for arch, layers, batch, prompt, tokens, requests in FAMILY_RUNS:
+        out["runs"][arch] = run_family(dev, arch, layers, batch, prompt, tokens, requests)
+    launches = {n: sum(r["launches"][n] for r in out["runs"].values())
+                for n in ("matmul", "rmsnorm", "flash_attention")}
+    by_dh: dict = {}
+    for r in out["runs"].values():
+        for dh, n in r["attention_launches_by_head_dim"].items():
+            by_dh[dh] = by_dh.get(dh, 0) + n
+    out["launches"], out["attention_launches_by_head_dim"] = launches, dict(sorted(by_dh.items()))
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the families path never launched the {name} kernel")
+    moe = get_config("qwen3-moe-30b-a3b")
+    cut = dataclasses.replace(moe, n_layers=FAMILY_RUNS[0][1])
+    out["profile_moe"] = profile_serve(dev, cut, decode_steps=MOE_PROFILE_DECODE_STEPS)
+    # the expert weights every dispatch slice reads, at HBM's rate
+    expert_bytes = cut.n_layers * cut.top_k * 3 * cut.n_experts * cut.d_model * cut.d_ff * 4
+    out["profile_moe"]["expert_bytes_per_step"] = expert_bytes
+    out["profile_moe"]["expert_bytes_bound_ms"] = 1e3 * expert_bytes / PEAK_BYTES_S
+    print(f"  qwen3-moe: every step reads the experts {cut.top_k} times, "
+          f"{expert_bytes / 1e9:.1f} GB: {out['profile_moe']['expert_bytes_bound_ms']:.1f} ms "
+          f"at {PEAK_BYTES_S / 1e12:.2f} TB/s, prefill or decode step alike")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["moe_logits"] = check_moe_logits(dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"families path: {out['seconds']:.1f} s, kernel launches {launches}; flash "
+          f"attention by head dim {out['attention_launches_by_head_dim']}")
+    return out
+
+
+def route_margin(probs, own, card):
+    """Per token (G, S): at the first of the k slots where the CPU's
+    expert choices ``own`` and the card's ``card`` differ, the CPU's
+    probability of its own expert less its probability of the card's
+    (0 where all k agree). Earlier slots agree, so that is how far the
+    CPU's router is from the card's pick: a near-tie reads near 0 and a
+    wrong expert at a wide margin does not, whatever other near-ties the
+    token's top k hold."""
+    import torch
+
+    first = (own != card).to(torch.int8).argmax(dim=-1, keepdim=True)     # (G, S, 1)
+    mine = torch.gather(probs, -1, torch.gather(own, -1, first))
+    theirs = torch.gather(probs, -1, torch.gather(card, -1, first))
+    return (mine - theirs).squeeze(-1)
+
+
+def check_moe_logits(dev) -> dict:
+    """qwen3-moe at full width, 2 layers: request 0's prefill with the
+    hand kernels on the card against the plain versions on the CPU, same
+    params and tokens. Routing first: the CPU computes its own router
+    from its own hidden state and records its expert choices against the
+    card's, then takes the card's, so the two sides' later arithmetic
+    stays comparable. Reports the share of (token, slot) choices that
+    agree per layer and, at each token where they differ, the margin of
+    the first slot that differs (route_margin); fails where they differ
+    at a margin of ROUTE_TIE or more,
+    and where the logits differ by more than LOGIT_ATOL."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_tree
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"), n_layers=2)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    # drawn on the card (7.4 GB: a CPU generator takes seconds), then copied
+    gpu_params = init_tree(model.param_defs(),
+                           torch.Generator(device=dev).manual_seed(0), device=dev)
+    cpu_params = to_device(gpu_params, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (4, 512),
+                           generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    real_route = moe.route
+    card_choices, layers = [], []
+
+    def record(xg, router, k):
+        probs, gate_w, gate_idx = real_route(xg, router, k)
+        card_choices.append(gate_idx)
+        return probs, gate_w, gate_idx
+
+    def pinned(xg, router, k):
+        probs, _, own = real_route(xg, router, k)
+        card = card_choices[len(layers)].cpu()
+        same = own == card
+        top = probs.sort(dim=-1, descending=True).values[..., :k + 1]
+        gap = (top[..., :-1] - top[..., 1:]).min(dim=-1).values     # (G, S)
+        differs = ~same.all(dim=-1)
+        margin = route_margin(probs, own, card)[differs]
+        layers.append({"agree": float(same.float().mean()),
+                       "tokens_differing": int(differs.sum()),
+                       "min_margin_where_differing": (float(margin.min())
+                                                      if bool(differs.any()) else None),
+                       "max_margin_where_differing": (float(margin.max())
+                                                      if bool(differs.any()) else None),
+                       "min_margin": float(gap.min())})
+        gate_w = torch.gather(probs, -1, card)
+        gate_w = gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9)
+        return probs, gate_w, card
+
+    try:
+        moe.route = record
+        reset_lm_counts()
+        got, _ = model.prefill(gpu_params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launched = lm_counts()
+        moe.route = pinned
+        want, _ = model.prefill(cpu_params, {"tokens": tokens.cpu()})
+    finally:
+        moe.route = real_route
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    agree_tok = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).float().mean())
+    slots = sum(c.numel() for c in card_choices)
+    agree = sum(l["agree"] * c.numel() for l, c in zip(layers, card_choices)) / slots
+    out = {"max_abs_err": err, "max_abs_logit": scale, "greedy_agree": agree_tok,
+           "route_agree": agree, "route_slots": slots, "route_by_layer": layers,
+           "launches": launched, "limit": LOGIT_ATOL, "route_tie": ROUTE_TIE,
+           "seconds": time.perf_counter() - t0}
+    print(f"qwen3-moe logits at full width, 2 layers: routing agrees at {agree:.6f} of "
+          f"{slots} (token, slot) choices; per layer {layers}; logits with the card's "
+          f"choices max|err| {err:.3e} (max|logit| {scale:.3e}, limit {LOGIT_ATOL}), greedy "
+          f"tokens agree {agree_tok:.2f}; kernel launches {launched}; "
+          f"{out['seconds']:.1f} s")
+    wide = [l["max_margin_where_differing"] for l in layers
+            if l["max_margin_where_differing"] is not None
+            and l["max_margin_where_differing"] >= ROUTE_TIE]
+    if wide:
+        fail(f"qwen3-moe: the card and the CPU route differently at margins {wide}, not "
+             f"near-ties (under {ROUTE_TIE})")
+    if not err <= LOGIT_ATOL:
+        fail(f"qwen3-moe logits: max|err| {err:.3e} beyond {LOGIT_ATOL}")
+    del gpu_params
+    return out
+
+
+def profile_serve(dev, cfg=None, decode_steps: int = 8) -> dict:
     """Where a full-width request's time goes: one prefill and
-    ``decode_steps`` decode steps of deepseek-7b (B = 4, T = 512, the
-    step programs without a tuning session), each timed on the host
-    around a device sync, then run again under ``torch.profiler``: the
-    device busy share is the traced kernels' summed time over the
-    untraced host interval (one stream, so kernels do not overlap)."""
+    ``decode_steps`` decode steps of ``cfg`` (deepseek-7b by default; B
+    PROFILE_BATCH, T PROFILE_SEQ; the step programs without a tuning session), each timed on
+    the host around a device sync, then run again under
+    ``torch.profiler``: the device busy share is the traced kernels'
+    summed time over the untraced host interval (one stream, so kernels
+    do not overlap). Beside the kernels by device time, the ATen products
+    (``aten::bmm``, ``aten::mm``) by input shape, which tell an MoE's
+    dispatch and combine einsums from its expert products."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -736,14 +1052,14 @@ def profile_serve(dev, decode_steps: int = 8) -> dict:
     from repro_torch.models.model import build_model
     from repro_torch.models.params import init_tree
 
-    cfg = get_config("deepseek-7b")
+    cfg = cfg or get_config("deepseek-7b")
     model = build_model(cfg)
     params = init_tree(model.param_defs(),
                        torch.Generator(device=dev).manual_seed(0), device=dev)
-    tokens = torch.randint(0, cfg.vocab, (4, 512),
+    tokens = torch.randint(0, cfg.vocab, (PROFILE_BATCH, PROFILE_SEQ),
                            generator=torch.Generator(device=dev).manual_seed(0),
                            device=dev)
-    max_len = 512 + decode_steps + 1
+    max_len = PROFILE_SEQ + decode_steps + 1
 
     def prefill():
         return model.prefill(params, {"tokens": tokens})
@@ -751,19 +1067,20 @@ def profile_serve(dev, decode_steps: int = 8) -> dict:
     def decode(state):
         tok, cache = state
         for i in range(decode_steps):
-            logits, cache = model.decode_step(params, cache, tok, 512 + i)
+            logits, cache = model.decode_step(params, cache, tok, PROFILE_SEQ + i)
             tok = logits[:, -1].argmax(-1)[:, None]
         return tok
 
     def decode_state():
         logits, (k, v) = prefill()
-        cache = model.init_cache(4, max_len, device=dev)
-        cache[0][:, :, :512] = k
-        cache[1][:, :, :512] = v
+        cache = model.init_cache(PROFILE_BATCH, max_len, device=dev)
+        cache[0][:, :, :PROFILE_SEQ] = k
+        cache[1][:, :, :PROFILE_SEQ] = v
         return logits[:, -1].argmax(-1)[:, None], cache
 
     decode(decode_state())                      # warm: allocator, cuBLAS
-    out = {}
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": PROFILE_BATCH,
+           "seq": PROFILE_SEQ, "decode_steps": decode_steps}
     for phase, fn in (("prefill", prefill), ("decode", decode)):
         # the host time without the profiler, which slows every launch
         arg = (decode_state(),) if phase == "decode" else ()
@@ -775,24 +1092,35 @@ def profile_serve(dev, decode_steps: int = 8) -> dict:
         # the device time with it: kernels and copies, not the host ops
         arg = (decode_state(),) if phase == "decode" else ()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             fn(*arg)
             torch.cuda.synchronize()
         dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA}
+        products = {f"{e.key} {e.input_shapes}": e.device_time_total
+                    for e in prof.key_averages(group_by_input_shape=True)
+                    if e.key in ("aten::bmm", "aten::mm") and e.device_time_total > 0}
         busy_s = sum(dev_us.values()) * 1e-6
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+        top_products = sorted(products.items(), key=lambda kv: -kv[1])[:8]
         out[phase] = {"wall_s": wall, "device_busy_s": busy_s,
                       "device_busy_share": busy_s / wall,
                       "rmsnorm_ms": sum(v for k, v in dev_us.items() if "rmsnorm" in k) * 1e-3,
-                      "top_kernels_ms": {k: v * 1e-3 for k, v in top}}
+                      "flash_ms": sum(v for k, v in dev_us.items()
+                                      if "flash_kernel" in k) * 1e-3,
+                      "top_kernels_ms": {k: v * 1e-3 for k, v in top},
+                      "top_products_ms": {k: v * 1e-3 for k, v in top_products}}
     out["decode"]["step_s"] = out["decode"]["wall_s"] / decode_steps
-    for phase, o in out.items():
-        print(f"profile {phase}: {o['wall_s']:.4f} s on the host clock, device "
-              f"busy {o['device_busy_s']:.4f} s ({100 * o['device_busy_share']:.1f}%), "
-              f"rmsnorm {o['rmsnorm_ms']:.3f} ms; "
-              f"top kernels (ms): "
+    for phase in ("prefill", "decode"):
+        o = out[phase]
+        print(f"profile {cfg.name} ({cfg.n_layers} layers) {phase}: {o['wall_s']:.4f} s "
+              f"on the host clock, device busy {o['device_busy_s']:.4f} s "
+              f"({100 * o['device_busy_share']:.1f}%), rmsnorm {o['rmsnorm_ms']:.3f} ms, "
+              f"flash attention {o['flash_ms']:.3f} ms; top kernels (ms): "
               + ", ".join(f"{k[:40]} {v:.1f}" for k, v in list(o["top_kernels_ms"].items())[:5]))
+        print("  products by input shape (ms): " + "; ".join(
+            f"{k} {v:.1f}" for k, v in list(o["top_products_ms"].items())[:6]))
     del params
     return out
 
@@ -881,8 +1209,9 @@ def check_attention(lib, dev, gen) -> dict:
     offset call and a small GQA call with a ragged tail; non-causal calls;
     every block at every ring depth at the reduced serve example's
     prefill (Dh 16); a few points at the serving shape (Dh 128), at
-    qwen3-moe's width (Dh 64) and at the timed Dh 16 shape; and TF32
-    controls at Dh 128 and 64."""
+    qwen3-moe's width (Dh 64) and at the timed Dh 16 shape; the families
+    path's shapes (FAMILY_ATTENTION_SHAPES) at two points and every ring
+    depth; and TF32 controls at Dh 128 and 64."""
     import torch
 
     from repro_torch.kernels.attention.attention import (
@@ -929,6 +1258,15 @@ def check_attention(lib, dev, gen) -> dict:
         for point in ({"block_q": 512, "block_kv": 512}, {"block_q": 128, "block_kv": 128},
                       {"block_q": 256, "block_kv": 512}):
             case("main-path width", shape, point)
+    # the families path's shapes: the step programs' chunks (512, 1024)
+    # clamped to the sequence, and the tuner's base blocks (128, 128), at
+    # every ring depth
+    for label, shape, causal in FAMILY_ATTENTION_SHAPES:
+        for bq, bkv in ((512, 1024), (128, 128)):
+            for la in (0, 1, 2):
+                case(label, shape, {"block_q": min(bq, shape[1]),
+                                    "block_kv": min(bkv, shape[2]), "lookahead": la},
+                     causal=causal)
     out = check_cases("attention", cases, ATTENTION_TOL)
     out["checks_by_head_dim"] = per_dh
     point = {"block_q": 512, "block_kv": 512}
@@ -950,7 +1288,8 @@ def check_rmsnorm(lib, dev, gen) -> dict:
     """Every instantiation at every ring depth and type at ragged shapes
     (N not a multiple of block_rows, d not a multiple of 4: the element
     copies), at the serving shapes, prefill's (2048, 4096) and decode's
-    (4, 4096), and at the reduced serve example's, (128, 64) and (4, 64)."""
+    (4, 4096), at the reduced serve example's, (128, 64) and (4, 64), and
+    at the families path's (FAMILY_RMSNORM_SHAPES)."""
     import torch
 
     from repro_torch.kernels.rmsnorm.rmsnorm import (
@@ -959,7 +1298,8 @@ def check_rmsnorm(lib, dev, gen) -> dict:
     out = {}
     for dtype, tol in ((torch.float32, RMSNORM_TOL), (torch.bfloat16, RMSNORM_BF16_TOL)):
         cases = []
-        for N, d in ((1000, 4096), (3, 1001), (2048, 4096), (4, 4096), (128, 64), (4, 64)):
+        for N, d in ((1000, 4096), (3, 1001), (2048, 4096), (4, 4096), (128, 64), (4, 64),
+                     *FAMILY_RMSNORM_SHAPES):
             x = torch.randn(N, d, generator=gen, device=dev).to(dtype)
             w = torch.randn(d, generator=gen, device=dev).to(dtype)
             for rows in BLOCK_ROWS:
@@ -1010,8 +1350,10 @@ def check_logits(dev) -> dict:
           f"plain versions on the CPU, max|err| {err:.3e} (max|logit| "
           f"{scale:.3e}), greedy tokens agree {agree:.2f}; kernel launches "
           f"{launched}; {time.perf_counter() - t0:.1f} s")
+    if not err <= LOGIT_ATOL:
+        fail(f"deepseek-7b logits: max|err| {err:.3e} beyond {LOGIT_ATOL}")
     return {"max_abs_err": err, "max_abs_logit": scale, "greedy_agree": agree,
-            "launches": launched}
+            "launches": launched, "limit": LOGIT_ATOL}
 
 
 def check_rmsnorm_grad(dev, gen) -> dict:
@@ -1468,6 +1810,39 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
               f"{row['library_eager_ms']:.4f} ms")
         del q, k, v, qt, kt, vt
     out["attention"]["by_head_dim"] = by_dh
+    # the families path's new shapes: GQA groups 5 and 7 at Dh 128 and
+    # whisper's non-causal calls over 1500 frames, at the step programs'
+    # chunks (512, 1024) clamped to the sequence
+    fam = {}
+    for label, (b, tq, tkv, h, hk, dh), causal in FAMILY_ATTENTION_SHAPES:
+        if label.startswith(("qwen3-moe", "whisper decoder")):
+            continue                      # timed above (Dh 64, Hk 4) / a 32-token call
+        q = torch.randn(b, tq, h, dh, generator=gen, device=dev)
+        k = torch.randn(b, tkv, hk, dh, generator=gen, device=dev)
+        v = torch.randn(b, tkv, hk, dh, generator=gen, device=dev)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        point = {"block_q": min(512, tq), "block_kv": min(1024, tkv)}
+
+        def sdpa(qt=qt, kt=kt, vt=vt, causal=causal):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+
+        row = {"ms": device_ms(lambda: flash_attention_cuda(q, k, v, point, causal=causal)),
+               "plain_ms": device_ms(lambda: flash_attention_plain(q, k, v, point,
+                                                                   causal=causal)),
+               "library_ms": device_ms(sdpa), "point": point, "causal": causal,
+               "shape": [b, tq, tkv, h, hk, dh]}
+        work = (4.0 * b * h * tq * tkv * dh * (0.5 if causal else 1.0),
+                4.0 * (2 * b * tq * h + 2 * b * tkv * hk) * dh)
+        row["bound_ms"], row["bound_by"] = bound(*work)
+        row["bound_3xtf32_ms"] = bound(*work, tf32x3=True)[0]
+        fam[label] = row
+        print(f"attention, {label} {row['shape']} (B, Tq, Tkv, H, Hk, Dh), causal {causal}: "
+              f"{row['ms']:.4f} ms at {point}; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), 3xTF32 bound {row['bound_3xtf32_ms']:.4f}; plain "
+              f"{row['plain_ms']:.4f} ms; SDPA {row['library_ms']:.4f} ms (graph replays)")
+        del q, k, v, qt, kt, vt
+    out["attention"]["families"] = fam
 
     x = torch.randn(M, K, generator=gen, device=dev)
     w = torch.randn(K, generator=gen, device=dev)
@@ -1677,6 +2052,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         save()
 
+    # -- 3c. the MoE, VLM and encoder-decoder families at full width -------
+    families_report = None
+    if "families" in only:
+        families_report = report["families"] = run_families(dev)
+        torch.cuda.empty_cache()
+        save()
+
     # -- 4. each kernel against its plain version ---------------------------
     if "check" in only:
         report["checks"] = {
@@ -1797,9 +2179,14 @@ def main(argv=None) -> int:
             entry["launches_by_rows"] = serve_report["rmsnorm_launches_by_rows"]
         if name == "flash_attention":
             entry["by_head_dim"] = t["by_head_dim"]
+            entry["families_shapes"] = t["families"]
             entry["checks_by_head_dim"] = chk["checks_by_head_dim"]
             entry["front_launches_by_head_dim"] = front_report["attention_launches_by_head_dim"]
+            entry["families_launches_by_head_dim"] = \
+                families_report["attention_launches_by_head_dim"]
             entry["tf32_control_dh64_tol_used"] = chk["tf32_tol_used_dh64"]
+        else:
+            entry["families_launches"] = families_report["launches"][name]
         entry["front_launches"] = front_report["launches"][name]
         if "tf32_max_abs_err" in chk:
             entry["tf32_control_max_abs_err"] = chk["tf32_max_abs_err"]

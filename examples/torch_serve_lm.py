@@ -8,9 +8,13 @@ reduced config of an assigned architecture.
 The port's counterpart of ``examples/serve_lm.py``, with ``--device``
 (default: the CUDA card). The config is the architecture's
 ``.reduced()`` one (2 layers, d_model 64, heads of 16), so on the card
-the prefill's causal self-attention runs the hand flash-attention kernel
-at head dim 16 and the norms the rmsnorm kernel. The port builds the
-dense family; the others raise, naming ROADMAP Queue 1 item 5, as
+the prefill's attention runs the hand flash-attention kernel at head dim
+16 (causal self-attention; for whisper-tiny also the encoder's and the
+cross-attention's non-causal calls) and the RMS norms the rmsnorm
+kernel. The port builds the dense, MoE (qwen3-moe-30b-a3b,
+llama4-scout-17b-a16e), VLM (qwen2-vl-7b, with 16 stub patch embeddings)
+and encoder-decoder (whisper-tiny, with stub frame embeddings)
+families; rwkv and hybrid raise, naming ROADMAP Queue 1 item 5, as
 ``repro_torch.models.model.build_model`` does.
 
 The session and the request loop are the serving CLI's own
@@ -25,7 +29,9 @@ off across requests; ``--registry PATH`` persists the tuned points, and a
 second run with the same path warm-starts every handle from them. The
 tuning flags are the canonical ``repro_torch.tune`` set declared by
 ``repro_torch.TuningConfig.add_flags``. Request ``req``'s prompt is drawn
-from a ``torch.Generator`` seeded with ``req``.
+from a ``torch.Generator`` seeded with ``req``. After the requests it
+prints the serving CLI's ``warm`` line for each handle that started from
+the registry.
 """
 
 import argparse
@@ -93,6 +99,9 @@ def main(argv=None) -> list[dict]:
     try:
         t0[0] = time.perf_counter()
         outs = serve_cli.serve(args, tcfg, session, on_request=on_request)
+        warm = serve_cli.format_warm(session) if session is not None else ""
+        if warm:
+            print(warm)
     finally:
         if session is not None:
             session.close()

@@ -217,8 +217,8 @@ def flash_attention_plain(
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Causal ``flash_attention_cuda`` at ``point`` under autograd (the
-    layers' call: no offset, the default scale).
+    """``flash_attention_cuda`` at ``point`` under autograd, causal unless
+    told otherwise (the layers' call: no offset, the default scale).
 
     Forward: the hand kernel on CUDA tensors (the plain version on the
     CPU). Backward: recomputes the attention through
@@ -228,10 +228,12 @@ class FlashAttentionFunction(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, point: Point):
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, point: Point,
+                causal: bool = True):
         ctx.save_for_backward(q, k, v)
         ctx.point = dict(point)
-        return flash_attention_cuda(q, k, v, point)
+        ctx.causal = causal
+        return flash_attention_cuda(q, k, v, point, causal=causal)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -239,9 +241,9 @@ class FlashAttentionFunction(torch.autograd.Function):
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
-            out = flash_attention_plain(*inputs, ctx.point)
+            out = flash_attention_plain(*inputs, ctx.point, causal=ctx.causal)
             grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
 
 
 __all__ = ["BLOCK_KV", "BLOCK_Q", "FlashAttentionFunction", "HEAD_DIMS", "SMEM_BYTES",

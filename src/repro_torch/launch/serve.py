@@ -17,7 +17,12 @@ persists them across restarts: a restarted process prints a ``warm``
 line for each kernel handle it started from a persisted best). ``--kernel-tuning kernel`` tunes the
 model's matmul / attention / rmsnorm / decode_attention kernels as
 independent session-managed compilettes. Request ``req``'s prompt is
-drawn from ``torch.Generator`` seeded with ``req``.
+drawn from ``torch.Generator`` seeded with ``req``; the stub modality
+inputs, as the reference draws them, from one seeded with 1: frame
+embeddings (B, ``enc_frames``, d) for the encoder-decoder family and 16
+patch embeddings (B, 16, d) for the VLM, both times 0.05. (The serve
+loop still sizes the VLM's cache and positions by ``cfg.vision_patches``,
+as the reference does: ROADMAP Queue 3, R2.)
 """
 
 from __future__ import annotations
@@ -83,6 +88,14 @@ def serve(args, tcfg, session, *, on_request=None) -> list[dict]:
         batch = {"tokens": torch.randint(
             0, cfg.vocab, (args.batch, args.prompt_len), generator=gen,
             device=device)}
+        stub = torch.Generator(device=device).manual_seed(1)
+        if cfg.family == "encdec":
+            batch["audio_embeds"] = torch.randn(
+                args.batch, cfg.enc_frames, cfg.d_model, generator=stub,
+                device=device) * 0.05
+        if cfg.family == "vlm":
+            batch["vision"] = torch.randn(
+                args.batch, 16, cfg.d_model, generator=stub, device=device) * 0.05
         out = generate(cfg, batch, serve_cfg, session=session)
         outs.append(out)
         if on_request is not None:

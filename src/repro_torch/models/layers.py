@@ -1,9 +1,9 @@
-"""Shared model layers: norms, RoPE, GQA attention, MLPs, embeddings.
+"""Shared model layers: norms, RoPE/M-RoPE, GQA attention, MLPs, embeddings.
 
 Mirrors ``repro/models/layers.py``: pure functions over param dicts
-(declared via ParamDef), interleaved-pair RoPE, for the families the
-port builds (its M-RoPE and encoder-decoder layers wait for those
-families). The reference's ``shard`` annotations drop out (there is no mesh), and so do its u16
+(declared via ParamDef), interleaved-pair RoPE, Qwen2-VL's M-RoPE, the
+sinusoidal positions and cross-attention of the encoder-decoder family.
+The reference's ``shard`` annotations drop out (there is no mesh), and so do its u16
 bit views around bf16 caches (an XLA:CPU workaround): the decode cache
 is updated in place, slot by slot, instead of rebuilt.
 
@@ -18,20 +18,22 @@ eager call routes through the plane as in the reference. Otherwise:
 
   * on a CUDA tensor, ``rms_norm`` launches the rmsnorm hand kernel at
     its ``DEFAULT_POINT`` (the reference's jnp body has no knob), and
-    causal attention without a window or an offset launches the flash
-    hand kernel with the plane's chunks, clamped to the sequence as
-    ``flash_attention_pallas`` clamps its blocks. When grad mode is on
-    and an input needs a gradient (training), the two go through
-    ``RMSNormFunction`` and ``FlashAttentionFunction``, the same kernels
-    under autograd; otherwise (serving, the plane's evaluations) the
-    wrappers are called directly;
-  * windowed, non-causal or offset attention, decode attention, and
-    everything on the CPU, run the plain PyTorch versions (on the card,
-    the flash kernel takes heads of 16, 64 and 128 and raises at any
-    other head dim);
-  * the projections and the MLP are ``torch.matmul`` in full fp32 (the
-    reference leaves these einsums to XLA, outside any Pallas kernel),
-    with TF32 off, PyTorch's default.
+    attention without a window or an offset, causal (self-attention) or
+    not (an encoder's self-attention, cross-attention over more than one
+    query), launches the flash hand kernel with the plane's chunks (the
+    config's for cross-attention, as in the reference), clamped to the
+    sequence as ``flash_attention_pallas`` clamps its blocks. When grad
+    mode is on and an input needs a gradient (training), the two go
+    through ``RMSNormFunction`` and ``FlashAttentionFunction``, the same
+    kernels under autograd; otherwise (serving, the plane's evaluations)
+    the wrappers are called directly;
+  * windowed or offset attention, decode attention (one query over the
+    cache, self or cross), ``layer_norm``, and everything on the CPU, run
+    the plain PyTorch versions (on the card, the flash kernel takes heads
+    of 16, 64 and 128 and raises at any other head dim);
+  * the projections, the MLP and the MoE experts are ``torch.matmul`` /
+    ``torch.einsum`` in full fp32 (the reference leaves these einsums to
+    XLA, outside any Pallas kernel), with TF32 off, PyTorch's default.
 """
 
 from __future__ import annotations
@@ -150,6 +152,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.reshape(B, T, H, Dh).to(x.dtype)
 
 
+def apply_mrope(
+    x: torch.Tensor, positions: torch.Tensor, theta: float,
+    sections: tuple[int, ...],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. positions: (3, B, T) for (t, h, w).
+
+    The Dh/2 frequency pairs are split into len(sections) groups; group i
+    rotates by positions[i].
+    """
+    B, T, H, Dh = x.shape
+    half = Dh // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to Dh/2 = {half}")
+    freqs = rope_freqs(Dh, theta, x.device)                    # (half,)
+    # Select which positional stream drives each frequency pair.
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))               # (half,)
+    pos = positions.to(torch.float32)[sec_id]                  # (half, B, T)
+    ang = pos.permute(1, 2, 0) * freqs                         # (B, T, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xp = x.to(torch.float32).reshape(B, T, H, half, 2)
+    x1, x2 = xp[..., 0], xp[..., 1]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(B, T, H, Dh).to(x.dtype)
+
+
+def sinusoidal_embedding(T: int, d: int, device=None) -> torch.Tensor:
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ------------------------------------------------------------- attention
 def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     d, H, Hk, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -194,22 +231,27 @@ def attn_out(o: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _rotate(q, k, positions, cfg: ModelConfig):
-    if positions is not None:
+    if cfg.mrope_sections is not None:
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif positions is not None:
         pos2d = positions if positions.dim() == 2 else positions[None]
         q = apply_rope(q, pos2d, cfg.rope_theta)
         k = apply_rope(k, pos2d, cfg.rope_theta)
     return q, k
 
 
-def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int):
-    """The step-programs' attention (see the module docstring)."""
-    qc, kc = plane_attn_chunks(cfg)
-    if q.is_cuda and causal and q_offset == 0 and cfg.window is None:
+def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
+            chunks: tuple[int, int] | None = None):
+    """The step-programs' attention (see the module docstring): the
+    plane's chunks unless ``chunks`` are given."""
+    qc, kc = chunks if chunks is not None else plane_attn_chunks(cfg)
+    if q.is_cuda and q_offset == 0 and cfg.window is None:
         point = {"block_q": min(qc, q.shape[1]), "block_kv": min(kc, k.shape[1])}
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if _needs_grad(q, k, v):
-            return FlashAttentionFunction.apply(q, k, v, point)
-        return flash_attention_cuda(q, k, v, point)
+            return FlashAttentionFunction.apply(q, k, v, point, causal)
+        return flash_attention_cuda(q, k, v, point, causal=causal)
     return flash_attention_torch(
         q, k, v, causal=causal, q_offset=q_offset, window=cfg.window,
         q_chunk=qc, k_chunk=kc, scores_f32=cfg.attn_scores_f32)
@@ -249,7 +291,7 @@ def self_attention_with_cache(
     """Prefill: returns output and the (k, v) cache to keep."""
     q, k, v = qkv_proj(x, p, cfg)
     q, k = _rotate(q, k, positions, cfg)
-    o = _attend(q, k, v, cfg, causal=True, q_offset=0)
+    o = _attend(q, k, v, cfg, causal=True)
     return attn_out(o, p, cfg), (k, v)
 
 
@@ -260,6 +302,9 @@ def decode_self_attention(
     cache_k: torch.Tensor,           # (B, S, Hk, Dh), updated in place
     cache_v: torch.Tensor,
     pos: int,                        # cache write slot
+    rope_pos: int | None = None,     # rotary position (defaults to pos;
+                                     # differs for VLM, where vision
+                                     # patches share a grid position)
 ):
     """One-token decode against a KV cache.
 
@@ -268,8 +313,13 @@ def decode_self_attention(
     """
     q, k, v = qkv_proj(x, p, cfg)
     B = x.shape[0]
-    if cfg.use_rope:
-        positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    positions = torch.full((B, 1), rope_pos if rope_pos is not None else pos,
+                           dtype=torch.int32, device=x.device)
+    if cfg.mrope_sections is not None:
+        pos3 = positions[None].expand(3, B, 1)
+        q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     S = cache_k.shape[1]
@@ -292,6 +342,30 @@ def decode_self_attention(
         o = decode_attention(q, cache_k, cache_v, length=length,
                              k_chunk=plane_decode_chunk(cfg))
     return attn_out(o, p, cfg), (cache_k, cache_v)
+
+
+def cross_attention_defs(cfg: ModelConfig) -> dict:
+    return attention_defs(cfg)
+
+
+def cross_attention(
+    x: torch.Tensor, p: dict, cfg: ModelConfig,
+    enc_k: torch.Tensor, enc_v: torch.Tensor,
+) -> torch.Tensor:
+    """Decoder cross-attention against precomputed encoder K/V: one query
+    through flash-decoding, more through non-causal flash attention at
+    the config's chunks."""
+    q = _proj(x, p["wq"])
+    if x.shape[1] == 1:
+        o = decode_attention(q, enc_k, enc_v, k_chunk=plane_decode_chunk(cfg))
+    else:
+        o = _attend(q, enc_k, enc_v, cfg, causal=False,
+                    chunks=(cfg.attn_q_chunk, cfg.attn_k_chunk))
+    return attn_out(o, p, cfg)
+
+
+def encoder_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
 
 
 # ------------------------------------------------------------------- mlp

@@ -1,7 +1,7 @@
 """Model dispatcher: config -> model instance; constituent-kernel specs.
 
-Mirrors ``repro/models/model.py``. The port builds the dense family; the
-other families (MoE, RWKV, hybrid, encoder-decoder, VLM) wait for
+Mirrors ``repro/models/model.py``. The port builds the dense, MoE, VLM
+and encoder-decoder families; the RWKV and hybrid families wait for
 ROADMAP Queue 1 item 5.
 """
 
@@ -9,12 +9,18 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import TransformerLM
+from repro_torch.models.vlm import VLM
+from repro_torch.models.whisper import WhisperLM
 
 
 def build_model(cfg: ModelConfig):
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return TransformerLM(cfg)
-    if cfg.family in ("moe", "vlm", "rwkv", "hybrid", "encdec"):
+    if cfg.family == "vlm":
+        return VLM(cfg)
+    if cfg.family == "encdec":
+        return WhisperLM(cfg)
+    if cfg.family in ("rwkv", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 5)")
     raise ValueError(f"unknown model family {cfg.family!r}")

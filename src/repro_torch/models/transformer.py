@@ -1,12 +1,13 @@
-"""Decoder-only transformer (dense backbone).
+"""Decoder-only transformer (dense / MoE / VLM backbones).
 
 Mirrors ``repro/models/transformer.py``. The model is an ``nn.Module``
 whose layers sit in an ``nn.ModuleList``; the modules hold no weights of
 their own: every step reads the reference's param tree (stacked layers,
 leading L axis), so one tree — made here by ``init_tree`` or carried over
 from JAX — drives both packages. A Python loop over the layers takes the
-place of the reference's ``lax.scan``. The MoE family waits for the port
-of ``models/moe.py``.
+place of the reference's ``lax.scan``. A block returns its MoE
+load-balancing loss beside its output (0 for a dense FFN), and ``loss``
+adds 0.01 times their sum, as the reference does.
 
 ``loss``, ``prefill`` and ``decode_step`` are step-programs: they run
 inside :func:`~repro_torch.runtime.kernel_plane.step_program`, so no
@@ -35,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_defs, moe_ffn
 from repro_torch.models.params import ParamDef, cast_params
 from repro_torch.runtime.kernel_plane import active_plane, step_program, use_kernel_plane
 
@@ -59,7 +61,7 @@ def layer_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.parallel_block:
         defs["ln2"] = ParamDef((cfg.d_model,), (None,), init="ones")
-    defs["ffn"] = L.mlp_defs(cfg)
+    defs["ffn"] = moe_defs(cfg) if cfg.family == "moe" else L.mlp_defs(cfg)
     return defs
 
 
@@ -77,22 +79,46 @@ def layer_params(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def checkpointed(fn):
+    """``fn`` under ``torch.utils.checkpoint`` (see the module docstring):
+    its recompute runs under the kernel plane and step-program mark of
+    the forward, whichever thread autograd runs it on."""
+    plane = active_plane()
+
+    def run(*args):
+        with use_kernel_plane(plane), step_program():
+            return fn(*args)
+
+    return lambda *args: checkpoint(run, *args, use_reentrant=False)
+
+
+def ffn_apply(x: torch.Tensor, lp: dict, cfg: ModelConfig):
+    """The block's FFN and its load-balancing loss (0.0 for a dense FFN:
+    no device allocation in a decode step)."""
+    if cfg.family == "moe":
+        return moe_ffn(x, lp["ffn"], cfg)
+    return L.mlp(x, lp["ffn"], cfg), 0.0
+
+
 class TransformerBlock(nn.Module):
-    """One pre-norm block: attention, then the MLP (or both in parallel)."""
+    """One pre-norm block: attention, then the FFN (or both in parallel)."""
 
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__()
         self.cfg = cfg
 
     def _ffn(self, h: torch.Tensor, lp: dict, attn: torch.Tensor,
-             hn: torch.Tensor) -> torch.Tensor:
+             hn: torch.Tensor) -> tuple[torch.Tensor, "torch.Tensor | float"]:
         cfg = self.cfg
         if cfg.parallel_block:
-            return h + attn + L.mlp(hn, lp["ffn"], cfg)
+            f, aux = ffn_apply(hn, lp, cfg)
+            return h + attn + f, aux
         h = h + attn
-        return h + L.mlp(L.norm(h, lp["ln2"], cfg.norm), lp["ffn"], cfg)
+        f, aux = ffn_apply(L.norm(h, lp["ln2"], cfg.norm), lp, cfg)
+        return h + f, aux
 
-    def forward(self, h: torch.Tensor, lp: dict, positions: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, lp: dict, positions: torch.Tensor):
+        """(output, load-balancing loss)."""
         hn = L.norm(h, lp["ln1"], self.cfg.norm)
         attn = L.self_attention(hn, lp["attn"], self.cfg, positions=positions)
         return self._ffn(h, lp, attn, hn)
@@ -101,25 +127,25 @@ class TransformerBlock(nn.Module):
         hn = L.norm(h, lp["ln1"], self.cfg.norm)
         attn, kv = L.self_attention_with_cache(
             hn, lp["attn"], self.cfg, positions=positions)
-        return self._ffn(h, lp, attn, hn), kv
+        return self._ffn(h, lp, attn, hn)[0], kv
 
     def decode(self, h: torch.Tensor, lp: dict, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, pos: int):
+               cache_v: torch.Tensor, pos: int, rope_pos: int | None = None):
         hn = L.norm(h, lp["ln1"], self.cfg.norm)
         attn, _ = L.decode_self_attention(
-            hn, lp["attn"], self.cfg, cache_k, cache_v, pos)
-        return self._ffn(h, lp, attn, hn)
+            hn, lp["attn"], self.cfg, cache_k, cache_v, pos, rope_pos=rope_pos)
+        return self._ffn(h, lp, attn, hn)[0]
 
 
 class TransformerLM(nn.Module):
-    """Dense decoder LM with the standard step functions."""
+    """Dense/MoE decoder LM with the standard step functions."""
 
     def __init__(self, cfg: ModelConfig) -> None:
         super().__init__()
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port's TransformerLM runs the "
-                "dense family; models/moe.py waits for ROADMAP Queue 1 item 5")
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(
+                f"family {cfg.family!r}: TransformerLM runs the dense, moe and "
+                "vlm backbones")
         self.cfg = cfg
         self.layers = nn.ModuleList(TransformerBlock(cfg) for _ in range(cfg.n_layers))
 
@@ -137,13 +163,27 @@ class TransformerLM(nn.Module):
         """``block`` under ``cfg.remat`` (see the module docstring)."""
         if self.cfg.remat == "none" or not torch.is_grad_enabled():
             return lambda h, lp: block(h, lp, positions)
-        plane = active_plane()
+        return checkpointed(lambda h, lp: block(h, lp, positions))
 
-        def run(h, lp):
-            with use_kernel_plane(plane), step_program():
-                return block(h, lp, positions)
+    # --- forward passes over embedded input (the reference's
+    # forward_train and forward_prefill); callers mark the step-program
+    def forward_train(self, params: dict, x: torch.Tensor, positions: torch.Tensor):
+        """x: (B, T, d) embedded input -> (final hidden, aux loss)."""
+        aux = x.new_zeros((), dtype=torch.float32)
+        for i, block in enumerate(self.layers):
+            x, a = self._remat_block(block, positions)(x, layer_params(params["layers"], i))
+            aux = aux + a
+        return L.norm(x, params["ln_f"], self.cfg.norm), aux
 
-        return lambda h, lp: checkpoint(run, h, lp, use_reentrant=False)
+    def forward_prefill(self, params: dict, x: torch.Tensor, positions: torch.Tensor):
+        """Causal forward that also returns the stacked (L, B, T, Hk, Dh)
+        KV caches."""
+        ks, vs = [], []
+        for i, block in enumerate(self.layers):
+            x, (k, v) = block.prefill(x, layer_params(params["layers"], i), positions)
+            ks.append(k)
+            vs.append(v)
+        return L.norm(x, params["ln_f"], self.cfg.norm), (torch.stack(ks), torch.stack(vs))
 
     # --- steps ---
     def loss(self, params: dict, batch: dict) -> torch.Tensor:
@@ -152,16 +192,12 @@ class TransformerLM(nn.Module):
             params = cast_params(params, cfg.compute_dtype)
             tokens = batch["tokens"]                      # (B, T)
             B, T = tokens.shape
-            h = L.embed_tokens(tokens, params["tok"], cfg)
+            x = L.embed_tokens(tokens, params["tok"], cfg)
             positions = self._positions(batch, B, T, tokens.device)
-            for i, block in enumerate(self.layers):
-                h = self._remat_block(block, positions)(
-                    h, layer_params(params["layers"], i))
-            h = L.norm(h, params["ln_f"], cfg.norm)
+            h, aux = self.forward_train(params, x, positions)
             logits = L.logits_out(h, params["tok"], cfg)
-            # the reference adds 0.01 * the MoE load-balancing loss here;
-            # it is 0 for the dense family, the one the port builds
-            return L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+            loss = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+            return loss + 0.01 * aux
 
     def prefill(self, params: dict, batch: dict):
         """Logits of the last position, and the stacked (L, B, T, Hk, Dh)
@@ -171,22 +207,16 @@ class TransformerLM(nn.Module):
             params = cast_params(params, cfg.compute_dtype)
             tokens = batch["tokens"]
             B, T = tokens.shape
-            h = L.embed_tokens(tokens, params["tok"], cfg)
+            x = L.embed_tokens(tokens, params["tok"], cfg)
             positions = self._positions(batch, B, T, tokens.device)
-            ks, vs = [], []
-            for i, block in enumerate(self.layers):
-                h, (k, v) = block.prefill(h, layer_params(params["layers"], i),
-                                          positions)
-                ks.append(k)
-                vs.append(v)
-            h = L.norm(h, params["ln_f"], cfg.norm)
-            logits = L.logits_out(h[:, -1:], params["tok"], cfg)
-            return logits, (torch.stack(ks), torch.stack(vs))
+            h, cache = self.forward_prefill(params, x, positions)
+            return L.logits_out(h[:, -1:], params["tok"], cfg), cache
 
     def decode_step(self, params: dict, cache: tuple, tokens: torch.Tensor,
-                    pos: int):
+                    pos: int, rope_pos: int | None = None):
         """One-token decode. tokens: (B, 1); cache: (k, v) with a leading
-        L axis, updated in place at slot ``pos``."""
+        L axis, updated in place at slot ``pos``; ``rope_pos`` is the
+        rotary position (``pos`` by default)."""
         cfg = self.cfg
         with step_program():
             params = cast_params(params, cfg.compute_dtype)
@@ -194,17 +224,17 @@ class TransformerLM(nn.Module):
             h = L.embed_tokens(tokens, params["tok"], cfg)    # (B, 1, d)
             for i, block in enumerate(self.layers):
                 h = block.decode(h, layer_params(params["layers"], i), ks[i], vs[i],
-                                 int(pos))
+                                 int(pos), None if rope_pos is None else int(rope_pos))
             h = L.norm(h, params["ln_f"], cfg.norm)
             return L.logits_out(h, params["tok"], cfg), (ks, vs)
 
-    def init_cache_shape(self, batch: int, max_len: int) -> tuple[int, ...]:
+    def init_cache_shape(self, batch: int, max_len: int) -> tuple[tuple[int, ...], ...]:
+        """The shape of each cache tensor: (k, v)."""
         cfg = self.cfg
         S = min(max_len, cfg.window) if cfg.window else max_len
-        return (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.d_head)
+        return ((cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.d_head),) * 2
 
     def init_cache(self, batch: int, max_len: int, *,
                    device: "torch.device | str" = "cpu"):
-        shape = self.init_cache_shape(batch, max_len)
         return tuple(torch.zeros(shape, dtype=self.cfg.compute_dtype, device=device)
-                     for _ in range(2))
+                     for shape in self.init_cache_shape(batch, max_len))

@@ -189,6 +189,8 @@ def generate(
 
     B, T = batch["tokens"].shape
     max_len = T + serve.max_new_tokens
+    if model_cfg.family == "vlm":
+        max_len += model_cfg.vision_patches
 
     prefill = model.prefill
     decode = model.decode_step
@@ -262,9 +264,8 @@ def _generate_inner(
         block_until_ready(logits)
         session.observe_busy(time.perf_counter() - t0)
     # widen KV caches to max_len where the family uses positional caches
-    want = model.init_cache_shape(B, max_len)
     widened = []
-    for got in cache:
+    for got, want in zip(cache, model.init_cache_shape(B, max_len)):
         if tuple(got.shape) == want:
             widened.append(got)
         else:
@@ -277,7 +278,7 @@ def _generate_inner(
 
     tokens = torch.argmax(logits[:, -1], dim=-1)[:, None]
     out_tokens = [tokens]
-    pos0 = T
+    pos0 = T if model_cfg.family != "vlm" else T + model_cfg.vision_patches
 
     if tune_program:
         # The decode evaluator replays the *current* decoding state; its

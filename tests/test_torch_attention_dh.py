@@ -4,7 +4,8 @@ The kernel's head dim is a template parameter (``csrc/attention.cuh``),
 instantiated at Dh 16 (every ``.reduced()`` config), 64 (the 64-wide
 families) and 128 (deepseek-7b). Here the source runs on the CPU under
 ``tests/cuda_emulator.h`` at Dh 16 and 64, at every ring depth, with
-GQA, ``q_offset`` and a ragged kv tail, against ``flash_attention_plain``
+GQA, ``q_offset`` and a ragged kv tail, and at Dh 128 with GQA groups of
+5 and 7, against ``flash_attention_plain``
 (rtol 1e-5, atol 1e-5, as at Dh 128 in ``test_torch_cuda_emulation.py``:
 online softmax over 32-key slices against the plain version's blocks,
 3xTF32 products). The shared-memory counts of the capacity rule are held
@@ -104,6 +105,31 @@ def test_emulated_attention_ragged_and_unaligned(emulated, Dh, causal, aligned):
     assert (k.data_ptr() % 16 == 0) == aligned
     got = _run(emulated, q, k, v, POINTS[0], causal=causal)
     want = tattn.flash_attention_plain(q, k, v, POINTS[0], causal=bool(causal))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("H,Hk", [(10, 2), (7, 1)])
+def test_emulated_attention_at_gqa_groups_5_and_7(emulated, H, Hk):
+    """GQA groups of 5 (llama4-scout: 40 heads over 8) and 7 (qwen2-vl:
+    28 over 4) at Dh 128, their head dim: q head h reads kv head h // G
+    for a G that is no power of two. Causal, Tq = Tkv = 9, as a prefill."""
+    B, T, Dh = 1, 9, 128
+    q = _randn(B, T, H, Dh, seed=30 + H)
+    k, v = _randn(B, T, Hk, Dh, seed=31), _randn(B, T, Hk, Dh, seed=32)
+    got = _run(emulated, q, k, v, POINTS[0])
+    want = tattn.flash_attention_plain(q, k, v, POINTS[0])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_emulated_attention_non_causal_over_a_ragged_kv(emulated):
+    """Non-causal at Dh 64 (whisper's encoder and cross-attention), a
+    few queries over 150 keys: no multiple of the 128-key block or of a
+    32-key slice."""
+    B, Tq, Tkv, H, Hk, Dh = 1, 8, 150, 2, 2, 64
+    q = _randn(B, Tq, H, Dh, seed=40)
+    k, v = _randn(B, Tkv, Hk, Dh, seed=41), _randn(B, Tkv, Hk, Dh, seed=42)
+    got = _run(emulated, q, k, v, POINTS[0], causal=0, lookahead=2)
+    want = tattn.flash_attention_plain(q, k, v, POINTS[0], causal=False)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
