@@ -50,7 +50,21 @@ the kernels' launch counts set to 0 just before and read just after:
    prompt 32, 32 tokens, 2 requests. No attention call of these models
    may run the plain version. Then a profiled qwen3-moe prefill and 4
    decode steps, and qwen3-moe's logits at full width, 2 layers, against
-   the CPU, the routing compared first.
+   the CPU, the routing compared first;
+6. the hybrid and RWKV families (phase ``recurrent``), whole (every
+   layer) and at full width under the same session, each model's weights
+   freed before the next (RECURRENT_RUNS): hymba-1.5b (parallel
+   windowed attention and SSM heads) and rwkv6-1.6b (no attention), each
+   at B 4, prompt 512, 32 tokens, 2 requests, then B 1, prompt 4096, 16
+   tokens (hymba past its window of 2048). Every full-sequence attention
+   call of hymba must run the plain version with its window, as the
+   reference's does; rwkv6 makes none; neither launches the flash kernel
+   from its layers, both the rmsnorm kernel. Then a profiled request of
+   each, with its SSM scan or WKV chunks in profiler ranges beside their
+   bounds; both models' logits at 2 layers against the CPU over a
+   prefill and 8 decode steps; and the gap between decoding token T and
+   prefilling T + 1 tokens at chunks of 128 and 16, T 512 and 600
+   (ROADMAP Queue 3, R4), reported and not held.
 
 Then it holds each kernel against its plain PyTorch version (every
 instantiation at every ring depth at ragged shapes — for attention at
@@ -62,7 +76,7 @@ loss's gradient of every parameter the same way), holds the gradients of
 the rmsnorm and attention Functions against autograd through their
 plain versions, and times each kernel beside its bound, its plain
 version and one PyTorch library call (euclid at each Table 3 input;
-rmsnorm at prefill's and decode's shapes). It prints one ``kernels`` JSON line and, last, ``{"ok": true,
+rmsnorm at prefill's and decode's shapes, at d 4096 and at hymba's 1600). It prints one ``kernels`` JSON line and, last, ``{"ok": true,
 "device": {...}}``.
 A profiler trace of one prefill and a few decode steps at full width
 says where the serving time goes (device busy share, kernels by device
@@ -73,7 +87,7 @@ Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. Full results go to
 ``chiprun_out/chip_smoke.json``. ``--only build,check`` (any of
 ``build``, ``table3``, ``serve``, ``warm`` (after ``serve``), ``profile``,
-``front``, ``families``, ``check``, ``logits``, ``train``, ``time``) runs a subset and
+``front``, ``families``, ``recurrent``, ``check``, ``logits``, ``train``, ``time``) runs a subset and
 prints no verdict: a quick look at a new
 kernel (``--only build,check,time`` times the kernels at DEFAULT_POINT
 where Table 3 has not run).
@@ -84,6 +98,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import itertools
 import json
 import os
 import re
@@ -122,8 +137,8 @@ SERVE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel"
 #: the reduced serve example, as its command line would be called
 SERVE_EXAMPLE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel",
                       "--requests", "2"]
-PHASES = ("build", "table3", "serve", "warm", "profile", "front", "families", "check",
-          "logits", "train", "time")
+PHASES = ("build", "table3", "serve", "warm", "profile", "front", "families", "recurrent",
+          "check", "logits", "train", "time")
 #: the families phase: each model at full width, its depth cut to what
 #: the card holds (None: all of it), served under the serve CLI's
 #: session with --kernel-tuning kernel (see run_family):
@@ -134,6 +149,28 @@ FAMILY_RUNS = (
     ("qwen2-vl-7b", 4, 4, 512, 16, 1),
     ("whisper-tiny", None, 4, 32, 32, 2),
 )
+#: the recurrent phase: hymba-1.5b and rwkv6-1.6b whole (every layer) at
+#: full width, served under the serve CLI's session with --kernel-tuning
+#: kernel (see run_family): (arch, batch, prompt, new tokens, requests).
+#: The prompt of 4096 runs hymba past its window of 2048 (the prefill
+#: mask, the cache's tail slice, and the decode write clamped to the
+#: cache's last slot from the first step: ROADMAP Queue 3, R3) and shows
+#: whether rwkv6's decode rate holds with its O(1) state
+RECURRENT_RUNS = (
+    ("hymba-1.5b", 4, 512, 32, 2),
+    ("hymba-1.5b", 1, 4096, 16, 1),
+    ("rwkv6-1.6b", 4, 512, 32, 2),
+    ("rwkv6-1.6b", 1, 4096, 16, 1),
+)
+#: the recurrent phase's card-against-CPU comparison: 2 layers at full
+#: width, B 4, T 512, then this many decode steps fed the card's tokens
+RECURRENT_DECODE_STEPS = 8
+#: the chunk lengths and prompts at which R4's prefill/decode gap is
+#: read. Token T of prefill(T + 1) sits at T mod chunk in its chunk: at
+#: 512 it opens a chunk of 128, where no clamp binds, so the two agree;
+#: at 600 it sits 88 deep, where the reference's clamps bind
+R4_CHUNKS = (128, 16)
+R4_PROMPTS = (512, 600)
 #: the batch and prompt of every profiled request (profile_serve)
 PROFILE_BATCH, PROFILE_SEQ = 4, 512
 #: the decode steps of the families phase's profiled qwen3-moe request
@@ -155,6 +192,11 @@ FAMILY_ATTENTION_SHAPES = (
 #: d_model, and qwen2-vl's prefill of 6144 rows
 FAMILY_RMSNORM_SHAPES = ((2048, 2048), (4, 2048), (2048, 5120), (4, 5120),
                          (2048, 3584), (4, 3584), (6144, 3584))
+#: the rmsnorm kernel's rows and widths on the recurrent path: hymba's d
+#: 1600 at prefill's 2048 rows, decode's 4 and the long prompt's 4096
+#: (and its decode's 1); rwkv6's d 2048 at 4096 rows and 1
+RECURRENT_RMSNORM_SHAPES = ((2048, 1600), (4, 1600), (4096, 1600), (1, 1600),
+                            (4096, 2048), (1, 2048))
 #: the training path: deepseek-7b at full width cut to 2 layers, B 4, T 512
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 512
 TRAIN_STEPS, TRAIN_RESUME_STEPS = 12, 14
@@ -182,7 +224,8 @@ RMSNORM_BF16_TOL = {"rtol": 1e-2, "atol": 1e-2}
 #: fp32 on both sides, sums in other orders (deepseek-7b read 3.6e-5 on
 #: logits of magnitude about 5). For qwen3-moe the CPU takes the card's
 #: expert choices (its own are compared first, see check_moe_logits), so
-#: the limit is the dense one.
+#: the limit is the dense one. The recurrent phase holds each carried
+#: state tensor to it times the tensor's largest value.
 LOGIT_ATOL = 1e-3
 #: the card and the CPU may route a token to different experts only at a
 #: near-tie: the router's inputs agree to fp32 rounding (about 1e-6
@@ -193,6 +236,22 @@ ROUTE_TIE = 1e-4
 #: both sides, sums in other orders (about 1e-6); a TF32 product keeps
 #: about three digits and would read about 1e-3
 GRAD_REL_L2 = 1e-4
+
+
+def recurrent_kernel_specs(kernel: str) -> list:
+    """(label, spec) of ``kernel`` at each (arch, batch, prompt) of
+    RECURRENT_RUNS: the shapes at which the recurrent phase's plane
+    handle of that kernel evaluates its points (model_kernel_specs, as
+    the serve loop attaches them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import model_kernel_specs
+
+    out = []
+    for arch, batch, prompt, _, _ in RECURRENT_RUNS:
+        for name, spec in model_kernel_specs(get_config(arch), batch=batch, seq=prompt):
+            if name == kernel:
+                out.append((f"{arch} B {batch} T {prompt}", spec))
+    return out
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -792,9 +851,15 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
     ``cfg.vision_patches`` patch embeddings, so that the cache and
     positions the loop sizes by them hold no gap (``serve`` passes 16, as
     the reference does: ROADMAP Queue 3, R2). Launch counts, the peak
-    memory and the calls of the plain attention in the layers are read
-    around the requests: the model's attention without a window must
-    never run the plain version."""
+    memory and the layers' attention calls, plain and flash, are read
+    around the requests. The attention rule: a model's attention
+    without a window never runs the plain version (and launches the
+    flash kernel at its head dim); every full-sequence attention call of
+    a windowed model (hymba) is the plain version and carries its
+    window, as in the reference, and launches no flash kernel; a model
+    without attention (rwkv6) makes no attention call of either kind.
+    The handles' own evaluations may launch the flash kernel whatever
+    the model."""
     import torch
 
     from repro_torch.configs import get_config
@@ -824,18 +889,22 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
                      "quarantined": a["quarantined"], "kernels": per})
         print(f"  {arch} " + serve_cli.format_request(req, out, args))
 
-    plain_calls = []
-    real_plain = L.flash_attention_torch
+    plain_calls, layer_flash = [], []
+    real_plain, real_flash = L.flash_attention_torch, L.flash_attention_cuda
 
     def counted_plain(q, k, v, **kw):
         plain_calls.append((tuple(q.shape), tuple(k.shape), kw.get("window")))
         return real_plain(q, k, v, **kw)
 
+    def counted_flash(q, k, v, *a, **kw):
+        layer_flash.append((tuple(q.shape), tuple(k.shape)))
+        return real_flash(q, k, v, *a, **kw)
+
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     session = serve_cli.make_session(args, tcfg)
-    L.flash_attention_torch = counted_plain
+    L.flash_attention_torch, L.flash_attention_cuda = counted_plain, counted_flash
     try:
         reset_lm_counts()
         t0 = time.perf_counter()
@@ -859,19 +928,32 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
         by_dh = dict(sorted(flash_attention_cuda.launches_by_head_dim.items()))
         rms_by_rows = dict(sorted(rmsnorm_cuda.launches_by_rows.items()))
     finally:
-        L.flash_attention_torch = real_plain
+        L.flash_attention_torch, L.flash_attention_cuda = real_plain, real_flash
         session.close()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"  {arch} at full width, {cfg.n_layers} of {full.n_layers} layers: {seconds:.1f} s, "
-          f"launches {launches}, flash attention by head dim {by_dh}, rmsnorm by rows "
-          f"{rms_by_rows}; plain attention calls {len(plain_calls)}; peak "
-          f"{peak_gb:.2f} GB")
-    if plain_calls:
-        fail(f"{arch}: attention ran the plain version on the card: {plain_calls[:4]}")
-    if by_dh.get(cfg.d_head, 0) == 0:
-        fail(f"{arch} never launched the flash kernel at its head dim {cfg.d_head}")
+    windows = sorted({w for _, _, w in plain_calls}, key=str)
+    print(f"  {arch} at full width, {cfg.n_layers} of {full.n_layers} layers, B {batch}, "
+          f"prompt {prompt}: {seconds:.1f} s, launches {launches}, flash attention by head "
+          f"dim {by_dh} ({len(layer_flash)} from the layers), rmsnorm by rows "
+          f"{rms_by_rows}; plain attention calls {len(plain_calls)} (windows {windows}); "
+          f"peak {peak_gb:.2f} GB")
+    if cfg.family == "rwkv":
+        if plain_calls or layer_flash:
+            fail(f"{arch} has no attention, yet its layers made {len(plain_calls)} plain "
+                 f"and {len(layer_flash)} flash attention calls")
+    elif cfg.window is not None:
+        if not plain_calls or windows != [cfg.window]:
+            fail(f"{arch}: every attention call must carry the window {cfg.window}; "
+                 f"plain calls {len(plain_calls)}, windows {windows}")
+        if layer_flash:
+            fail(f"{arch}: the windowed attention launched the flash kernel: {layer_flash[:4]}")
+    else:
+        if plain_calls:
+            fail(f"{arch}: attention ran the plain version on the card: {plain_calls[:4]}")
+        if by_dh.get(cfg.d_head, 0) == 0:
+            fail(f"{arch} never launched the flash kernel at its head dim {cfg.d_head}")
     faulted = [r["request"] for r in rows if r["quarantined"]]
     if faulted:
         fail(f"{arch}: variants were quarantined in requests {faulted}")
@@ -881,6 +963,7 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
             "params": cfg.n_params(), "seconds": seconds, "requests": rows,
             "launches": launches, "attention_launches_by_head_dim": by_dh,
             "rmsnorm_launches_by_rows": rms_by_rows, "plain_attention_calls": len(plain_calls),
+            "plain_attention_windows": windows, "layer_flash_launches": len(layer_flash),
             "max_memory_allocated_gb": peak_gb}
 
 
@@ -923,6 +1006,236 @@ def run_families(dev) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"families path: {out['seconds']:.1f} s, kernel launches {launches}; flash "
           f"attention by head dim {out['attention_launches_by_head_dim']}")
+    return out
+
+
+def labelled(targets):
+    """Wrap each function ``getattr(module, name)`` of ``targets`` in a
+    ``torch.profiler.record_function`` range of that name, for
+    profile_serve's ``labels``; returns the function that undoes it."""
+    import torch
+
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+
+    def wrap(fn, name):
+        def run(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return run
+
+    for m, n, fn in saved:
+        setattr(m, n, wrap(fn, n))
+    return lambda: [setattr(m, n, fn) for m, n, fn in saved]
+
+
+def scan_work(cfg, B: int, T: int) -> dict:
+    """The least bytes and the operations of the prefill's recurrent core
+    over all layers, from its shapes: hymba's chunked SSM scan reads a
+    and b and writes every state (B, T, d, ssm_state), a multiply and an
+    add each; rwkv6's chunked WKV reads r, k, v and log w, writes y and
+    reads and writes the (H, C, C) state, and does the reference's four
+    products a chunk (q k^T and its mask times v over the chunk, q S and
+    the state update), whatever the chunk holds."""
+    if cfg.family == "hybrid":
+        n = B * T * cfg.d_model * cfg.ssm_state
+        return {"name": "ssm_scan_chunked", "bytes": cfg.n_layers * 3 * n * 4,
+                "flops": cfg.n_layers * 2 * n}
+    C = cfg.rwkv_head_size
+    H = cfg.d_model // C
+    Lc = min(cfg.scan_chunk, T)
+    chunks = -(-T // Lc)
+    flops = chunks * (4 * B * H * Lc * Lc * C + 4 * B * Lc * H * C * C)
+    nbytes = (5 * B * T * H * C + 2 * B * H * C * C) * 4
+    return {"name": "wkv_chunked", "bytes": cfg.n_layers * nbytes,
+            "flops": cfg.n_layers * flops}
+
+
+def check_recurrent_logits(dev, arch: str) -> dict:
+    """``arch`` at full width, 2 layers: request 0's prefill (B 4, T 512)
+    and RECURRENT_DECODE_STEPS decode steps with the hand kernels on the
+    card against the plain versions on the CPU, same params. The CPU
+    takes the card's tokens, so one differing argmax does not cascade,
+    and every decode step compares what the carried state (hymba's conv
+    buffer and SSM state, rwkv6's S, xa and xc) gives; the state itself
+    is compared after the last step. Fails where logits differ by more
+    than LOGIT_ATOL, or a state tensor by more than LOGIT_ATOL times its
+    largest value on the CPU (a fault in the state that has not reached
+    the logits within the steps)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_tree
+    from repro_torch.runtime.serve_loop import widen_cache
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    B, T = 4, 512
+    max_len = T + RECURRENT_DECODE_STEPS
+    gpu_params = init_tree(model.param_defs(),
+                           torch.Generator(device=dev).manual_seed(0), device=dev)
+    cpu_params = to_device(gpu_params, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (B, T),
+                           generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    reset_lm_counts()
+    got, gcache = model.prefill(gpu_params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launched = lm_counts()
+    want, ccache = model.prefill(cpu_params, {"tokens": tokens.cpu()})
+    errs, agree = [], []
+
+    def compare(got, want):
+        got = got.cpu()
+        errs.append(float((got - want).abs().max()))
+        agree.append(float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).float().mean()))
+        return float(want.abs().max())
+
+    scale = compare(got, want)
+    gcache, ccache = (widen_cache(model, c, B, max_len) for c in (gcache, ccache))
+    tok = got[:, -1].argmax(-1)[:, None]
+    for i in range(RECURRENT_DECODE_STEPS):
+        got, gcache = model.decode_step(gpu_params, gcache, tok, T + i)
+        want, ccache = model.decode_step(cpu_params, ccache, tok.cpu(), T + i)
+        scale = max(scale, compare(got, want))
+        tok = got[:, -1].argmax(-1)[:, None]
+    state_err = [float((g.cpu() - c).abs().max()) for g, c in zip(gcache, ccache)]
+    state_max = [float(c.abs().max()) for c in ccache]
+    state_limit = [LOGIT_ATOL * m for m in state_max]
+    out = {"arch": arch, "n_layers": 2, "batch": B, "seq": T,
+           "decode_steps": RECURRENT_DECODE_STEPS, "prefill_max_abs_err": errs[0],
+           "decode_max_abs_err": max(errs[1:]), "max_abs_err": max(errs),
+           "max_abs_logit": scale, "greedy_agree_prefill": agree[0],
+           "greedy_agree_decode": sum(agree[1:]) / len(agree[1:]),
+           "state_max_abs_err": state_err, "state_max_abs": state_max,
+           "state_limit": state_limit, "launches": launched, "limit": LOGIT_ATOL,
+           "seconds": time.perf_counter() - t0}
+    print(f"{arch} logits at full width, 2 layers: prefill max|err| {errs[0]:.3e}, "
+          f"{RECURRENT_DECODE_STEPS} decode steps fed the card's tokens max|err| "
+          f"{max(errs[1:]):.3e} (max|logit| {scale:.3e}, limit {LOGIT_ATOL}); greedy "
+          f"tokens agree {agree[0]:.2f} at prefill, {out['greedy_agree_decode']:.2f} over the "
+          f"decode steps; state after them max|err| per tensor "
+          f"{[f'{e:.2e}' for e in state_err]} (limits {[f'{e:.2e}' for e in state_limit]}); "
+          f"kernel launches {launched}; {out['seconds']:.1f} s")
+    if not max(errs) <= LOGIT_ATOL:
+        fail(f"{arch} logits: max|err| {max(errs):.3e} beyond {LOGIT_ATOL}")
+    if not all(e <= lim for e, lim in zip(state_err, state_limit)):
+        fail(f"{arch} state: max|err| per tensor {state_err} beyond {state_limit}")
+    del gpu_params
+    return out
+
+
+def read_r4(dev, arch: str) -> dict:
+    """R4 (ROADMAP Queue 3), reported and not held: ``arch`` at full width,
+    2 layers, B 4: prefill(T) then decode token T, against prefill(T +
+    1)'s last logits, at each chunk length of R4_CHUNKS and each T of
+    R4_PROMPTS."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_tree
+    from repro_torch.runtime.serve_loop import widen_cache
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    params = init_tree(build_model(cfg).param_defs(),
+                       torch.Generator(device=dev).manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab, (4, max(R4_PROMPTS) + 1),
+                           generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    out = {}
+    for chunk in R4_CHUNKS:
+        model = build_model(dataclasses.replace(cfg, scan_chunk=chunk))
+        for T in R4_PROMPTS:
+            _, cache = model.prefill(params, {"tokens": tokens[:, :T]})
+            decoded, _ = model.decode_step(params, widen_cache(model, cache, 4, T + 1),
+                                           tokens[:, T:T + 1], T)
+            full, _ = model.prefill(params, {"tokens": tokens[:, :T + 1]})
+            out[f"chunk {chunk}, T {T}"] = {
+                "chunk": chunk, "T": T,
+                "max_abs_gap": float((decoded[:, -1] - full[:, -1]).abs().max()),
+                "max_abs_logit": float(full.abs().max()),
+                "greedy_agree": float((decoded[:, -1].argmax(-1)
+                                       == full[:, -1].argmax(-1)).float().mean())}
+    print(f"R4 {arch} (full width, 2 layers, B 4): decode(prefill(T), token T) against "
+          f"prefill(T + 1): " + "; ".join(
+              f"{k}: max|gap| {r['max_abs_gap']:.3e} (max|logit| "
+              f"{r['max_abs_logit']:.3e}), greedy agree {r['greedy_agree']:.2f}"
+              for k, r in out.items()))
+    del params
+    return out
+
+
+def run_recurrent(dev) -> dict:
+    """The hybrid and RWKV families on the card (RECURRENT_RUNS), whole and
+    at full width, each model's weights freed before the next; each must
+    launch the rmsnorm kernel. Then one profiled request per model (B
+    PROFILE_BATCH, T PROFILE_SEQ, 4 decode steps) with its recurrent core
+    in profiler ranges, beside the byte and operation bounds of its steps
+    and of that core; the logits of both at 2 layers against the CPU
+    (check_recurrent_logits); and R4's prefill/decode gap (read_r4)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import hymba, rwkv6, ssm
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import count_params
+
+    t0 = time.perf_counter()
+    out = {"runs": []}
+    for arch, batch, prompt, tokens, requests in RECURRENT_RUNS:
+        run = run_family(dev, arch, None, batch, prompt, tokens, requests)
+        if run["launches"]["rmsnorm"] == 0:
+            fail(f"{arch} never launched the rmsnorm kernel")
+        out["runs"].append(run)
+    out["launches"] = {n: sum(r["launches"][n] for r in out["runs"])
+                       for n in ("matmul", "rmsnorm", "flash_attention")}
+    by_rows: dict = {}
+    for r in out["runs"]:
+        for rows, n in r["rmsnorm_launches_by_rows"].items():
+            by_rows[rows] = by_rows.get(rows, 0) + n
+    out["rmsnorm_launches_by_rows"] = dict(sorted(by_rows.items()))
+    targets = {"hymba-1.5b": [(hymba, "ssm_branch"), (ssm, "ssm_scan_chunked"),
+                              (L, "flash_attention_torch")],
+               "rwkv6-1.6b": [(rwkv6, "time_mix"), (rwkv6, "wkv_chunked"),
+                              (rwkv6, "channel_mix")]}
+    out["profiles"] = {}
+    for arch, fns in targets.items():
+        cfg = get_config(arch)
+        undo = labelled(fns)
+        try:
+            prof = profile_serve(dev, cfg, decode_steps=4, labels=tuple(n for _, n in fns))
+        finally:
+            undo()
+        defs = build_model(cfg).param_defs()
+        n_params = count_params(defs)
+        # prefill's products: every weight but the embedding table once per
+        # token, the unembedding for the last position only
+        n_embed = 2 * cfg.vocab * cfg.d_model
+        prefill_flops = 2.0 * (n_params - n_embed) * PROFILE_BATCH * PROFILE_SEQ
+        prof["decode_bound_ms"], prof["decode_bound_by"] = bound(
+            2.0 * (n_params - cfg.vocab * cfg.d_model) * PROFILE_BATCH, 4.0 * n_params)
+        prof["prefill_bound_ms"], prof["prefill_bound_by"] = bound(prefill_flops, 4.0 * n_params)
+        core = scan_work(cfg, PROFILE_BATCH, PROFILE_SEQ)
+        core["bound_ms"], core["bound_by"] = bound(core["flops"], core["bytes"])
+        core["prefill_device_ms"] = prof["prefill"]["ranges_ms"].get(core["name"])
+        prof["recurrent_core"] = core
+        out["profiles"][arch] = prof
+        print(f"  {arch}: prefill bound {prof['prefill_bound_ms']:.1f} ms "
+              f"({prof['prefill_bound_by']}), decode step bound "
+              f"{prof['decode_bound_ms']:.3f} ms ({prof['decode_bound_by']}); its "
+              f"{core['name']} in prefill: {core['prefill_device_ms']} ms on the device "
+              f"against a bound of {core['bound_ms']:.3f} ms ({core['bound_by']}: "
+              f"{core['bytes'] / 1e9:.2f} GB, {core['flops'] / 1e9:.1f} GFLOP)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["logits"] = {arch: check_recurrent_logits(dev, arch) for arch in targets}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["r4"] = {arch: read_r4(dev, arch) for arch in targets}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"recurrent path: {out['seconds']:.1f} s, kernel launches {out['launches']}; "
+          f"rmsnorm by rows {out['rmsnorm_launches_by_rows']}")
     return out
 
 
@@ -1034,16 +1347,18 @@ def check_moe_logits(dev) -> dict:
     return out
 
 
-def profile_serve(dev, cfg=None, decode_steps: int = 8) -> dict:
+def profile_serve(dev, cfg=None, decode_steps: int = 8, labels=()) -> dict:
     """Where a full-width request's time goes: one prefill and
     ``decode_steps`` decode steps of ``cfg`` (deepseek-7b by default; B
     PROFILE_BATCH, T PROFILE_SEQ; the step programs without a tuning session), each timed on
     the host around a device sync, then run again under
     ``torch.profiler``: the device busy share is the traced kernels'
     summed time over the untraced host interval (one stream, so kernels
-    do not overlap). Beside the kernels by device time, the ATen products
-    (``aten::bmm``, ``aten::mm``) by input shape, which tell an MoE's
-    dispatch and combine einsums from its expert products."""
+    do not overlap). Beside the kernels by device time and their count,
+    the ATen products (``aten::bmm``, ``aten::mm``) by input shape, which
+    tell an MoE's dispatch and combine einsums from its expert products,
+    and the device time inside each ``record_function`` range named in
+    ``labels`` (the caller opens them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1051,6 +1366,7 @@ def profile_serve(dev, cfg=None, decode_steps: int = 8) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.models.params import init_tree
+    from repro_torch.runtime.serve_loop import widen_cache
 
     cfg = cfg or get_config("deepseek-7b")
     model = build_model(cfg)
@@ -1072,11 +1388,9 @@ def profile_serve(dev, cfg=None, decode_steps: int = 8) -> dict:
         return tok
 
     def decode_state():
-        logits, (k, v) = prefill()
-        cache = model.init_cache(PROFILE_BATCH, max_len, device=dev)
-        cache[0][:, :, :PROFILE_SEQ] = k
-        cache[1][:, :, :PROFILE_SEQ] = v
-        return logits[:, -1].argmax(-1)[:, None], cache
+        logits, cache = prefill()
+        return (logits[:, -1].argmax(-1)[:, None],
+                widen_cache(model, cache, PROFILE_BATCH, max_len))
 
     decode(decode_state())                      # warm: allocator, cuBLAS
     out = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": PROFILE_BATCH,
@@ -1096,8 +1410,15 @@ def profile_serve(dev, cfg=None, decode_steps: int = 8) -> dict:
                      record_shapes=True) as prof:
             fn(*arg)
             torch.cuda.synchronize()
-        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA}
+        events = prof.key_averages()
+        # a record_function range may also appear on the device's timeline
+        # (a user annotation spanning its kernels): not a kernel of its own
+        dev_us = {e.key: e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA and e.key not in labels}
+        n_kernels = sum(e.count for e in events
+                        if e.device_type == DeviceType.CUDA and e.key not in labels)
+        ranges_ms = {e.key: e.device_time_total * 1e-3 for e in events
+                     if e.key in labels and e.device_type == DeviceType.CPU}
         products = {f"{e.key} {e.input_shapes}": e.device_time_total
                     for e in prof.key_averages(group_by_input_shape=True)
                     if e.key in ("aten::bmm", "aten::mm") and e.device_time_total > 0}
@@ -1110,14 +1431,17 @@ def profile_serve(dev, cfg=None, decode_steps: int = 8) -> dict:
                       "flash_ms": sum(v for k, v in dev_us.items()
                                       if "flash_kernel" in k) * 1e-3,
                       "top_kernels_ms": {k: v * 1e-3 for k, v in top},
-                      "top_products_ms": {k: v * 1e-3 for k, v in top_products}}
+                      "top_products_ms": {k: v * 1e-3 for k, v in top_products},
+                      "kernel_launches": n_kernels, "ranges_ms": ranges_ms}
     out["decode"]["step_s"] = out["decode"]["wall_s"] / decode_steps
     for phase in ("prefill", "decode"):
         o = out[phase]
         print(f"profile {cfg.name} ({cfg.n_layers} layers) {phase}: {o['wall_s']:.4f} s "
               f"on the host clock, device busy {o['device_busy_s']:.4f} s "
               f"({100 * o['device_busy_share']:.1f}%), rmsnorm {o['rmsnorm_ms']:.3f} ms, "
-              f"flash attention {o['flash_ms']:.3f} ms; top kernels (ms): "
+              f"flash attention {o['flash_ms']:.3f} ms, {o['kernel_launches']} kernels; "
+              f"ranges (ms) { {k: round(v, 3) for k, v in o['ranges_ms'].items()} }; top "
+              "kernels (ms): "
               + ", ".join(f"{k[:40]} {v:.1f}" for k, v in list(o["top_kernels_ms"].items())[:5]))
         print("  products by input shape (ms): " + "; ".join(
             f"{k} {v:.1f}" for k, v in list(o["top_products_ms"].items())[:6]))
@@ -1158,12 +1482,14 @@ def check_cases(name, cases, tol) -> dict:
 
 def check_matmul(lib, dev, gen) -> dict:
     """Every instantiation at a ragged shape (M, N, K no multiple of any
-    block), a few points at the serving shape, and a TF32 control."""
+    block), a few points at the serving shape and at each shape of the
+    recurrent path's handle (recurrent_kernel_specs), and a TF32
+    control."""
     import torch
 
     from repro_torch.kernels.matmul.matmul import (
         PHASE1, instantiations, matmul_cuda, matmul_plain)
-    from repro_torch.kernels.matmul.ops import make_space
+    from repro_torch.kernels.matmul.ops import DEFAULT_POINT, make_space
 
     cases, inputs = [], {}
 
@@ -1190,6 +1516,16 @@ def check_matmul(lib, dev, gen) -> dict:
         cases.append((f"{point} at {serving}",
                       lambda a=a, b=b, p=point: matmul_cuda(a, b, p, lib=lib),
                       lambda a=a, b=b, p=point: matmul_plain(a, b, p)))
+    # the recurrent path's handle shapes, (B T, d_ff, d): the base point
+    # and a stride through the Hopper space at each
+    for label, spec in recurrent_kernel_specs("matmul"):
+        shape = (spec["M"], spec["N"], spec["K"])
+        space = make_space(*shape, vmem_kb=lib_capacity_kb(dev), hopper=True)
+        for point in [DEFAULT_POINT, *list(space.iter_valid())[::541]]:
+            a, b = args(shape)
+            cases.append((f"{point} at {shape} {label}",
+                          lambda a=a, b=b, p=point: matmul_cuda(a, b, p, lib=lib),
+                          lambda a=a, b=b, p=point: matmul_plain(a, b, p)))
     out = check_cases("matmul", cases, MATMUL_TOL)
     a, b = args(serving)
     want = torch.matmul(a, b)
@@ -1211,11 +1547,14 @@ def check_attention(lib, dev, gen) -> dict:
     prefill (Dh 16); a few points at the serving shape (Dh 128), at
     qwen3-moe's width (Dh 64) and at the timed Dh 16 shape; the families
     path's shapes (FAMILY_ATTENTION_SHAPES) at two points and every ring
-    depth; and TF32 controls at Dh 128 and 64."""
+    depth; the recurrent path's handle shapes (recurrent_kernel_specs) at
+    every point of the Hopper space; and TF32 controls at Dh 128 and
+    64."""
     import torch
 
     from repro_torch.kernels.attention.attention import (
         BLOCK_KV, BLOCK_Q, HEAD_DIMS, flash_attention_cuda, flash_attention_plain)
+    from repro_torch.kernels.attention.ops import make_space
 
     cases, inputs, per_dh = [], {}, {}
 
@@ -1267,6 +1606,17 @@ def check_attention(lib, dev, gen) -> dict:
                 case(label, shape, {"block_q": min(bq, shape[1]),
                                     "block_kv": min(bkv, shape[2]), "lookahead": la},
                      causal=causal)
+    # the recurrent path's handle shapes (hymba: GQA group 5 over 25
+    # heads; rwkv6's 32 heads, which its layers never call): every block
+    # the Hopper space holds at every ring depth, each a point the handle
+    # may evaluate
+    for label, spec in recurrent_kernel_specs("attention"):
+        shape = tuple(spec[k] for k in ("B", "Tq", "Tkv", "H", "Hk", "Dh"))
+        space = make_space(spec["Tq"], spec["Tkv"], spec["Dh"],
+                           vmem_kb=lib_capacity_kb(dev), hopper=True)
+        points = {(p["block_q"], p["block_kv"], p["lookahead"]) for p in space.iter_valid()}
+        for bq, bkv, la in sorted(points):
+            case(label, shape, {"block_q": bq, "block_kv": bkv, "lookahead": la})
     out = check_cases("attention", cases, ATTENTION_TOL)
     out["checks_by_head_dim"] = per_dh
     point = {"block_q": 512, "block_kv": 512}
@@ -1289,7 +1639,8 @@ def check_rmsnorm(lib, dev, gen) -> dict:
     (N not a multiple of block_rows, d not a multiple of 4: the element
     copies), at the serving shapes, prefill's (2048, 4096) and decode's
     (4, 4096), at the reduced serve example's, (128, 64) and (4, 64), and
-    at the families path's (FAMILY_RMSNORM_SHAPES)."""
+    at the families and recurrent paths' (FAMILY_RMSNORM_SHAPES,
+    RECURRENT_RMSNORM_SHAPES)."""
     import torch
 
     from repro_torch.kernels.rmsnorm.rmsnorm import (
@@ -1299,7 +1650,7 @@ def check_rmsnorm(lib, dev, gen) -> dict:
     for dtype, tol in ((torch.float32, RMSNORM_TOL), (torch.bfloat16, RMSNORM_BF16_TOL)):
         cases = []
         for N, d in ((1000, 4096), (3, 1001), (2048, 4096), (4, 4096), (128, 64), (4, 64),
-                     *FAMILY_RMSNORM_SHAPES):
+                     *FAMILY_RMSNORM_SHAPES, *RECURRENT_RMSNORM_SHAPES):
             x = torch.randn(N, d, generator=gen, device=dev).to(dtype)
             w = torch.randn(d, generator=gen, device=dev).to(dtype)
             for rows in BLOCK_ROWS:
@@ -1870,6 +2221,38 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
         "point": RN_DEFAULT, "shape": [4, K]}
     decode["bound_ms"], decode["bound_by"] = bound(4.0 * 4 * K, 4.0 * (2 * 4 * K + K))
     out["rmsnorm"].update({f"decode_{k}": v for k, v in decode.items()})
+    # the recurrent path's width, hymba's d 1600, at prefill's and decode's
+    # rows. Each call of a replay takes the next input of a pool that holds
+    # more than three times the L2 (where one input is larger than a
+    # thousandth of it), so prefill's 13 MB input comes from HBM, as the
+    # byte bound assumes, and not from the L2 a repeated input stays in
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    rec = {}
+    for rows in (2048, 4):
+        nbytes = 4 * rows * 1600
+        n_pool = -(-3 * l2 // nbytes) if nbytes * 1000 > l2 else 1
+        pool = [(torch.randn(rows, 1600, generator=gen, device=dev),
+                 torch.randn(1600, generator=gen, device=dev)) for _ in range(n_pool)]
+
+        def rotated(fn):
+            turn = itertools.count()
+            return lambda: fn(*pool[next(turn) % n_pool])
+
+        row = {"ms": device_ms(rotated(lambda x, w: rmsnorm_cuda(x, w, RN_DEFAULT))),
+               "plain_ms": device_ms(rotated(lambda x, w: rmsnorm_plain(x, w, RN_DEFAULT))),
+               "library_ms": device_ms(rotated(
+                   lambda x, w: F.rms_norm(x, (1600,), w, eps=1e-6))),
+               "point": RN_DEFAULT, "shape": [rows, 1600], "input_pool": n_pool,
+               "l2_bytes": l2}
+        row["bound_ms"], row["bound_by"] = bound(4.0 * rows * 1600,
+                                                 4.0 * (2 * rows * 1600 + 1600))
+        rec[f"{rows}x1600"] = row
+        print(f"rmsnorm at {row['shape']}: {row['ms']:.4f} ms (bound {row['bound_ms']:.5f} ms, "
+              f"{row['bound_by']}); plain {row['plain_ms']:.4f} ms; library "
+              f"{row['library_ms']:.4f} ms (graph replays over a pool of {n_pool} inputs; "
+              f"L2 {l2 / 2**20:.0f} MiB)")
+        del pool
+    out["rmsnorm"]["recurrent_shapes"] = rec
     for name, t in out.items():
         bounds = f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, fp32 CUDA cores; "
         bounds += f"{t['bound_ms'] / t['ms']:.3f} of it reached"
@@ -2059,6 +2442,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         save()
 
+    # -- 3d. the hybrid and RWKV families, whole, at full width -----------
+    recurrent_report = None
+    if "recurrent" in only:
+        recurrent_report = report["recurrent"] = run_recurrent(dev)
+        torch.cuda.empty_cache()
+        save()
+
     # -- 4. each kernel against its plain version ---------------------------
     if "check" in only:
         report["checks"] = {
@@ -2176,6 +2566,7 @@ def main(argv=None) -> int:
                       and k not in entry})
         if name == "rmsnorm":
             entry["decode_shape"] = t["decode_shape"]
+            entry["recurrent_shapes"] = t["recurrent_shapes"]
             entry["launches_by_rows"] = serve_report["rmsnorm_launches_by_rows"]
         if name == "flash_attention":
             entry["by_head_dim"] = t["by_head_dim"]
@@ -2187,6 +2578,7 @@ def main(argv=None) -> int:
             entry["tf32_control_dh64_tol_used"] = chk["tf32_tol_used_dh64"]
         else:
             entry["families_launches"] = families_report["launches"][name]
+        entry["recurrent_launches"] = recurrent_report["launches"][name]
         entry["front_launches"] = front_report["launches"][name]
         if "tf32_max_abs_err" in chk:
             entry["tf32_control_max_abs_err"] = chk["tf32_max_abs_err"]

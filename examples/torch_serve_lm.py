@@ -11,11 +11,12 @@ The port's counterpart of ``examples/serve_lm.py``, with ``--device``
 the prefill's attention runs the hand flash-attention kernel at head dim
 16 (causal self-attention; for whisper-tiny also the encoder's and the
 cross-attention's non-causal calls) and the RMS norms the rmsnorm
-kernel. The port builds the dense, MoE (qwen3-moe-30b-a3b,
-llama4-scout-17b-a16e), VLM (qwen2-vl-7b, with 16 stub patch embeddings)
-and encoder-decoder (whisper-tiny, with stub frame embeddings)
-families; rwkv and hybrid raise, naming ROADMAP Queue 1 item 5, as
-``repro_torch.models.model.build_model`` does.
+kernel. Every family is served: dense, MoE (qwen3-moe-30b-a3b,
+llama4-scout-17b-a16e), VLM (qwen2-vl-7b, with 16 stub patch embeddings),
+encoder-decoder (whisper-tiny, with stub frame embeddings), RWKV
+(rwkv6-1.6b: no attention, an O(1) state) and hybrid (hymba-1.5b: its
+windowed attention runs the plain version, as the reference's does, and
+a prompt past the reduced window of 32 exercises the window).
 
 The session and the request loop are the serving CLI's own
 (:func:`repro_torch.launch.serve.make_session` and

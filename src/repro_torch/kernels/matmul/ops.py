@@ -22,7 +22,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.profiles import TPU_V5E, DeviceProfile
+from repro_torch.core.compilette import Compilette
+from repro_torch.core.profiles import TPU_V5E, DeviceProfile, device_smem_kb
 from repro_torch.core.tuning_space import Param, Point, TuningSpace
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.catalog import (
@@ -151,6 +152,40 @@ def _variant(point: Point, device: torch.device):
     return fn
 
 
+def make_matmul_compilette(
+    M: int, N: int, K: int,
+    *,
+    dtype: torch.dtype = torch.float32,
+    device: "torch.device | str | None" = None,
+    vmem_kb: int | None = None,
+) -> Compilette:
+    """Compilette over the matmul space at ``M x N x K``.
+
+    The reference's factory, with ``device`` for its ``interpret``: on a
+    CUDA ``device`` (the default) the space is sized by the Hopper rule
+    against the card's shared memory per block and every variant is the
+    hand kernel; on the CPU it keeps the reference's rule and
+    ``TPU_V5E.vmem_kb`` (the simulated-core studies' space) and serves
+    the plain version. Its cost model is :func:`matmul_cost_model`.
+    """
+    dev = resolve_device(device)
+    on_cuda = dev.type == "cuda"
+    if vmem_kb is None:
+        vmem_kb = device_smem_kb(dev) if on_cuda else TPU_V5E.vmem_kb
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    space = make_space(M, N, K, dtype_bytes=itemsize, vmem_kb=vmem_kb, hopper=on_cuda)
+
+    def generate(point: Point, **spec: Any):
+        return _variant(point, dev)
+
+    def cost_model(point: Point, spec: dict[str, Any], profile: DeviceProfile) -> float:
+        full = {"M": M, "N": N, "K": K, "dtype_bytes": itemsize}
+        full.update(spec)
+        return matmul_cost_model(point, full, profile)
+
+    return Compilette("matmul", space, generate, cost_model=cost_model)
+
+
 # ---------------------------------------------------------- kernel catalog
 def _itemsize(spec: dict[str, Any]) -> int:
     return torch.empty((), dtype=torch_dtype(spec.get("dtype", "float32"))).element_size()
@@ -207,6 +242,7 @@ KERNEL = KernelDef(
 __all__ = [
     "DEFAULT_POINT",
     "KERNEL",
+    "make_matmul_compilette",
     "make_space",
     "matmul_cost_model",
     "matmul_cuda",

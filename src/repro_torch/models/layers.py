@@ -327,7 +327,10 @@ def decode_self_attention(
         slot = pos % cfg.window
         S_eff = cfg.window
     else:
-        slot = pos
+        # the reference writes with dynamic_update_slice, which clamps the
+        # start to S - 1: a windowed cache sized at the window (hymba's,
+        # W = min(max_len, window)) takes every token past W at slot W - 1
+        slot = min(pos, S - 1)
         S_eff = S
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)

@@ -1,13 +1,14 @@
 """Model dispatcher: config -> model instance; constituent-kernel specs.
 
-Mirrors ``repro/models/model.py``. The port builds the dense, MoE, VLM
-and encoder-decoder families; the RWKV and hybrid families wait for
-ROADMAP Queue 1 item 5.
+Mirrors ``repro/models/model.py``: the port builds all six families
+(dense, MoE, VLM, RWKV, hybrid and encoder-decoder).
 """
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.hymba import HymbaLM
+from repro_torch.models.rwkv6 import RWKV6LM
 from repro_torch.models.transformer import TransformerLM
 from repro_torch.models.vlm import VLM
 from repro_torch.models.whisper import WhisperLM
@@ -18,11 +19,12 @@ def build_model(cfg: ModelConfig):
         return TransformerLM(cfg)
     if cfg.family == "vlm":
         return VLM(cfg)
+    if cfg.family == "rwkv":
+        return RWKV6LM(cfg)
+    if cfg.family == "hybrid":
+        return HymbaLM(cfg)
     if cfg.family == "encdec":
         return WhisperLM(cfg)
-    if cfg.family in ("rwkv", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 5)")
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 

@@ -80,6 +80,7 @@ __all__ = [
     "ServeConfig",
     "generate",
     "serve_tuning_defaults",   # re-export: the regime base lives in api
+    "widen_cache",
 ]
 
 class ServeConfig:
@@ -104,6 +105,23 @@ class ServeConfig:
         return (f"ServeConfig(max_new_tokens={self.max_new_tokens}, "
                 f"greedy={self.greedy}, temperature={self.temperature}, "
                 f"seed={self.seed}, tuning={self.tuning})")
+
+
+def widen_cache(model, cache, batch: int, max_len: int) -> tuple:
+    """A prefill's cache at its decode shape: each tensor of ``cache`` into
+    the zeros of ``model.init_cache_shape(batch, max_len)``, where the
+    family's cache is positional (KV caches); a tensor already at its
+    shape (a recurrent state, hymba's windowed cache cut to its tail) is
+    kept as it is."""
+    widened = []
+    for got, want in zip(cache, model.init_cache_shape(batch, max_len)):
+        if tuple(got.shape) == tuple(want):
+            widened.append(got)
+        else:
+            full = torch.zeros(want, dtype=got.dtype, device=got.device)
+            full[tuple(slice(0, g) for g in got.shape)] = got
+            widened.append(full)
+    return tuple(widened)
 
 
 def _prefill_compilette(model_cfg: ModelConfig, seq: int) -> Compilette:
@@ -263,16 +281,7 @@ def _generate_inner(
     if credit_busy:
         block_until_ready(logits)
         session.observe_busy(time.perf_counter() - t0)
-    # widen KV caches to max_len where the family uses positional caches
-    widened = []
-    for got, want in zip(cache, model.init_cache_shape(B, max_len)):
-        if tuple(got.shape) == want:
-            widened.append(got)
-        else:
-            full = torch.zeros(want, dtype=got.dtype, device=got.device)
-            full[tuple(slice(0, g) for g in got.shape)] = got
-            widened.append(full)
-    cache = tuple(widened)
+    cache = widen_cache(model, cache, B, max_len)
     block_until_ready(cache[0])
     t_prefill = time.perf_counter() - t0
 

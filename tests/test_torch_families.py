@@ -53,7 +53,7 @@ from repro_torch.models.model import build_model, model_kernel_specs
 from repro_torch.models.moe import capacity, moe_ffn, route
 from repro_torch.models.params import count_params, init_tree
 from repro_torch.models.vlm import mrope_positions
-from repro_torch.runtime.serve_loop import ServeConfig, generate
+from repro_torch.runtime.serve_loop import ServeConfig, generate, widen_cache
 
 TOL = {"rtol": 1e-4, "atol": 1e-4}
 AUX_TOL = {"rtol": 1e-5, "atol": 1e-7}
@@ -211,10 +211,7 @@ def test_greedy_decode_matches_jax_over_8_steps(family):
     jl, jcache = jax.jit(jm.prefill)(jparams, jbatch(batch))
     jcache = _pad_cache(jcache, [s.shape for s in jm.init_cache_shape(B, max_len)])
     tl, tcache = tm.prefill(tparams, tbatch(batch))
-    full = tm.init_cache(B, max_len)
-    for f, c in zip(full, tcache):
-        f[tuple(slice(0, n) for n in c.shape)] = c
-    tcache = full
+    tcache = widen_cache(tm, tcache, B, max_len)
     jdec = jax.jit(jm.decode_step)
     jt = jnp.argmax(jl[:, -1], axis=-1)[:, None].astype(jnp.int32)
     tt = torch.argmax(tl[:, -1], dim=-1)[:, None]
@@ -509,9 +506,7 @@ def test_arch_prefill_decode_consistency(arch):
     with torch.no_grad():
         logits_p, cache = model.prefill(params, prompt)
         assert torch.isfinite(logits_p).all()
-        full = model.init_cache(B, 64)
-        for f, c in zip(full, cache):
-            f[tuple(slice(0, n) for n in c.shape)] = c
+        full = widen_cache(model, cache, B, 64)
         pos0 = T_ if tcfg.family != "vlm" else T_ + 16
         logits_d, _ = model.decode_step(params, full, full_batch["tokens"][:, T_:T_ + 1],
                                         pos0)

@@ -280,9 +280,13 @@ def test_serve_cli_reports_each_warm_start(tmp_path, capsys):
     assert "(warm)" in out
 
 
-def test_serve_example_refuses_the_families_not_yet_ported():
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_serve_example_serves_the_recurrent_families(arch, capsys):
+    """The reduced rwkv6 and hymba through the example on the CPU; the
+    hymba prompt of 40 runs past its reduced window of 32."""
     example = _load(ROOT / "examples" / "torch_serve_lm.py", "_torch_serve_lm")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        example.main(["--device", "cpu", "--arch", "rwkv6-1.6b", "--tokens", "2",
-                      "--batch", "1", "--prompt-len", "4"])
+    outs = example.main(["--device", "cpu", "--arch", arch, "--tokens", "4",
+                         "--batch", "2", "--prompt-len", "40"])
+    assert len(outs) == 1 and tuple(outs[0]["tokens"].shape) == (2, 4)
+    assert capsys.readouterr().out
 

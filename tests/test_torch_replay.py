@@ -312,6 +312,8 @@ SCRIPTS = {
     "fleet_fabric": ("run", {"quick": True, "seed": 0, "write": False}),
     "transfer_grid": ("run", {"quick": True, "seed": 0, "write": False}),
     "fig5_simulated_cores": ("run", {}),
+    "fig1_motivational": ("run", {}),
+    "table5_param_correlation": ("run", {}),
 }
 
 
@@ -343,3 +345,38 @@ def test_benchmark_script_json_equals_the_reference(name, monkeypatch, capsys):
     assert any(got), f"{name} produced no payload"
     out = capsys.readouterr().out
     assert out                              # the script printed its table
+
+
+@pytest.mark.parametrize("shape", [(2048, 2048, 2048), (512, 1024, 96)])
+def test_make_matmul_compilette_is_the_references_on_the_cpu(shape):
+    """Built for the CPU, the port's matmul compilette has the reference's
+    space (the TPU capacity) and simulates every valid point on every
+    profile to the reference's seconds."""
+    from repro_torch.core.profiles import ALL_PROFILES
+    from repro_torch.kernels.matmul.ops import make_matmul_compilette
+
+    jops = importlib.import_module("repro.kernels.matmul.ops")
+    jprofiles = importlib.import_module("repro.core.profiles")
+    want = jops.make_matmul_compilette(*shape)
+    got = make_matmul_compilette(*shape, device="cpu")
+    points = list(got.space.iter_valid())
+    assert [dict(p) for p in points] == [dict(p) for p in want.space.iter_valid()]
+    assert points
+    for prof, jprof in zip(ALL_PROFILES, jprofiles.ALL_PROFILES):
+        assert prof.name == jprof.name
+        for p in points[::7]:
+            assert got.simulate(p, prof) == want.simulate(p, jprof)
+
+
+def test_simulated_cores_example_prints_fig5s_table(tmp_path):
+    """``examples/torch_simulated_cores.py``, run from another directory,
+    prints the tables and summary of ``benchmarks/torch_fig5_simulated_cores.py``."""
+    import subprocess
+
+    res = subprocess.run([sys.executable, str(ROOT / "examples" / "torch_simulated_cores.py")],
+                         capture_output=True, text=True, timeout=120, cwd=tmp_path,
+                         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"})
+    assert res.returncode == 0, res.stderr
+    assert "Fig.5" in res.stdout and "summary:" in res.stdout
+    for prof in ("SI-L1", "TI-F3"):
+        assert prof in res.stdout

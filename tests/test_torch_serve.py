@@ -19,12 +19,13 @@ import torch
 
 from repro.configs import get_config as jax_config
 from repro.models.model import build_model as jax_build
+from repro.models.params import count_params as jax_count
 from repro.models.params import init_tree as jax_init
 from repro.runtime.serve_loop import ServeConfig as JServeConfig
 from repro.runtime.serve_loop import generate as jax_generate
 
 from repro_torch.api import serve_tuning_defaults
-from repro_torch.configs import get_config
+from repro_torch.configs import REGISTRY, get_config
 from repro_torch.interop import params_from_jax
 from repro_torch.models.model import build_model
 from repro_torch.models.params import count_params, init_tree
@@ -173,10 +174,20 @@ def test_params_from_jax_checks_the_tree(reduced):
         params_from_jax(extra, tcfg, "cpu")
 
 
-@pytest.mark.parametrize("family", ["hymba-1.5b", "rwkv6-1.6b"])
-def test_other_families_wait_for_their_port(family):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        build_model(get_config(family))
+def test_build_model_refuses_an_unknown_family():
+    with pytest.raises(ValueError, match="unknown model family 'ssm'"):
+        build_model(dataclasses.replace(get_config("deepseek-7b"), family="ssm"))
+
+
+@pytest.mark.parametrize("arch", sorted(REGISTRY))
+def test_build_model_builds_every_config(arch):
+    """Every config of ``repro_torch.configs`` builds, at full width and
+    reduced, and declares the reference's parameter count."""
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        model = build_model(cfg)
+        assert count_params(model.param_defs()) > 0
+    assert count_params(build_model(get_config(arch)).param_defs()) == \
+        jax_count(jax_build(jax_config(arch)).param_defs())
 
 
 def test_launch_serve_on_the_cpu(capsys):

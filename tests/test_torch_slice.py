@@ -171,13 +171,14 @@ def test_importing_the_bench_leaves_jax_out():
 
 
 def test_importing_the_model_families_leaves_jax_out():
-    """Building every family the port has (dense, moe, vlm, encdec), and
-    its serve loop and CLI, imports nothing of JAX or the JAX package."""
+    """Building every family (dense, moe, vlm, encdec, rwkv, hybrid), and
+    the serve loop and CLI, imports nothing of JAX or the JAX package."""
     code = ("import sys, repro_torch.launch.serve, repro_torch.runtime.serve_loop;"
             "from repro_torch.configs import get_config;"
             "from repro_torch.models.model import build_model;"
             "[build_model(get_config(a).reduced()) for a in ('deepseek-7b',"
-            " 'qwen3-moe-30b-a3b', 'llama4-scout-17b-a16e', 'qwen2-vl-7b', 'whisper-tiny')];"
+            " 'qwen3-moe-30b-a3b', 'llama4-scout-17b-a16e', 'qwen2-vl-7b', 'whisper-tiny',"
+            " 'rwkv6-1.6b', 'hymba-1.5b')];"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "print(bad); sys.exit(1 if bad else 0)")
