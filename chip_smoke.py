@@ -64,7 +64,24 @@ the kernels' launch counts set to 0 just before and read just after:
    bounds; both models' logits at 2 layers against the CPU over a
    prefill and 8 decode steps; and the gap between decoding token T and
    prefilling T + 1 tokens at chunks of 128 and 16, T 512 and 600
-   (ROADMAP Queue 3, R4), reported and not held.
+   (ROADMAP Queue 3, R4), reported and not held;
+7. the distributed and launch layer (phase ``dist``). The machine has one
+   card, so no collective crosses a wire here: collectives run only on
+   gloo CPU ranks in the tests and on a fake process group in the dry
+   run. On a one-rank NCCL group and a 1 x 1 ``(data, model)`` mesh on
+   the card, deepseek-7b's train cell from ``launch.shapes.build_cell``
+   (full width, 2 of 30 layers, B 4, T 512, fp32: the train phase's cut)
+   takes 3 steps from seed 0 with DTensor parameters, and its prefill
+   cell runs whole (30 layers, B 4, T 512, fp32). The losses, the
+   updated parameters and the logits must equal the unsharded port's on
+   the same batches within 1e-6 relative (a 1 x 1 mesh reorders no
+   sum), the rmsnorm and flash kernels must launch inside the sharded
+   steps (on the local shards) and the plain attention must never run.
+   Beside each cell's measured step and peak memory stand the graph
+   walker's FLOPs, bytes and peak for the same cell traced on a fake
+   1 x 1 group on the host, and the fp32 roofline terms. The host also
+   traces production cells on a fake group of 256 (DIST_DRYRUN), started
+   at the beginning of the run so that they overlap the other phases.
 
 Then it holds each kernel against its plain PyTorch version (every
 instantiation at every ring depth at ragged shapes — for attention at
@@ -87,7 +104,7 @@ Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. Full results go to
 ``chiprun_out/chip_smoke.json``. ``--only build,check`` (any of
 ``build``, ``table3``, ``serve``, ``warm`` (after ``serve``), ``profile``,
-``front``, ``families``, ``recurrent``, ``check``, ``logits``, ``train``, ``time``) runs a subset and
+``front``, ``families``, ``recurrent``, ``check``, ``logits``, ``train``, ``dist``, ``time``) runs a subset and
 prints no verdict: a quick look at a new
 kernel (``--only build,check,time`` times the kernels at DEFAULT_POINT
 where Table 3 has not run).
@@ -138,7 +155,7 @@ SERVE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel"
 SERVE_EXAMPLE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel",
                       "--requests", "2"]
 PHASES = ("build", "table3", "serve", "warm", "profile", "front", "families", "recurrent",
-          "check", "logits", "train", "time")
+          "check", "logits", "train", "dist", "time")
 #: the families phase: each model at full width, its depth cut to what
 #: the card holds (None: all of it), served under the serve CLI's
 #: session with --kernel-tuning kernel (see run_family):
@@ -200,6 +217,46 @@ RECURRENT_RMSNORM_SHAPES = ((2048, 1600), (4, 1600), (4096, 1600), (1, 1600),
 #: the training path: deepseek-7b at full width cut to 2 layers, B 4, T 512
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 512
 TRAIN_STEPS, TRAIN_RESUME_STEPS = 12, 14
+#: the dist phase: sharded steps of the train cell, runs of the prefill
+#: cell, and the limit of each against the unsharded port (relative to
+#: the largest value of each tensor compared)
+DIST_STEPS = 3
+DIST_REL = 1e-6
+#: production cells the dist phase traces on the host, on a fake group
+#: of 256 (the single 16 x 16 mesh), each in its own process: the two
+#: that the card host's PyTorch traces (its older DTensor refuses some
+#: other families' reshapes; PERF.md §6)
+DIST_DRYRUN = (("deepseek-7b", "train_4k"), ("deepseek-7b", "decode_32k"))
+#: the dist phase's cells traced on a fake 1 x 1 group on the host: the
+#: walker's terms for the steps the card runs (fp32 roofline)
+DIST_TRACE = """
+import dataclasses, json, time
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.distributed.hlo_analysis import analyze_graph, memory_analysis
+from repro_torch.distributed.roofline import HBM_BW, PEAK_FLOPS_FP32, roofline_from
+from repro_torch.launch.dryrun import init_fake_group, trace
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.shapes import build_cell
+init_fake_group(1)
+mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+out = {}
+for kind, layers, batch, seq in %s:
+    cfg = get_config("deepseek-7b")
+    cfg = dataclasses.replace(cfg, n_layers=layers or cfg.n_layers)
+    t0 = time.perf_counter()
+    cell = build_cell(cfg, ShapeSpec("dist", kind, seq, batch), mesh)
+    gm, donated = trace(cell)
+    t = analyze_graph(gm)
+    roof = roofline_from({}, t, n_chips=1, model_flops=cell.model_flops,
+                         peak=PEAK_FLOPS_FP32, hbm=HBM_BW)
+    out[kind] = {"trace_s": time.perf_counter() - t0, "nodes": len(gm.graph.nodes),
+                 "flops": t.flops, "bytes": t.bytes, "coll_bytes": t.coll_bytes,
+                 "memory": memory_analysis(gm, donated),
+                 # an eager step donates nothing: its caller holds the state
+                 "memory_eager": memory_analysis(gm), "roofline": roof.row()}
+print("DIST_TRACE " + json.dumps(out))
+"""
 
 #: limits of the kernels against their plain versions. euclid's is far
 #: tighter than its KernelDef.tolerance (rtol 1e-3): a sound fp32 kernel
@@ -2071,6 +2128,271 @@ def profile_train(dev, point: dict, steps: int = 3) -> dict:
     return out
 
 
+def start_dist_traces() -> list:
+    """Start the dist phase's host traces, each a process on the CPU (no
+    card): the production cells of DIST_DRYRUN through ``python -m
+    repro_torch.launch.dryrun``, and the phase's own cells on a fake 1 x 1
+    group. :func:`run_dist` collects them."""
+    import atexit
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out_dir = ROOT / "build" / "dryrun_smoke"
+    cells = [("train", TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ),
+             ("prefill", None, TRAIN_BATCH, TRAIN_SEQ)]
+    procs = [("cells", None, subprocess.Popen(
+        [sys.executable, "-c", DIST_TRACE % repr(cells)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))]
+    for arch, shape in DIST_DRYRUN:
+        procs.append(((arch, shape), out_dir / f"{arch}_{shape}_single.json", subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", "single", "--out", str(out_dir)],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    # a run that fails before collecting them leaves none behind
+    atexit.register(lambda: [proc.kill() for _, _, proc in procs if proc.poll() is None])
+    return procs
+
+
+def finish_dist_traces(procs) -> tuple[dict, list]:
+    """Wait for :func:`start_dist_traces`' processes; fail on any fault."""
+    cells, dryrun = None, []
+    for tag, path, proc in procs:
+        out, err = proc.communicate(timeout=1000)
+        if proc.returncode != 0:
+            fail(f"dist: the host trace {tag} failed: {err[-2000:]}")
+        if tag == "cells":
+            cells = json.loads(out.split("DIST_TRACE ", 1)[1])
+        else:
+            rec = json.loads(path.read_text())
+            if rec["status"] != "ok":
+                fail(f"dist: the dry run of {tag} is {rec['status']}")
+            dryrun.append(rec)
+    return cells, dryrun
+
+
+def _on_mesh(tree, layout, mesh):
+    """``tree``'s tensors as DTensors on a one-rank ``mesh`` laid out as
+    ``layout`` (a tree of placements): there the local shard is the whole
+    tensor, so no copy is made."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: _on_mesh(v, layout[k], mesh) for k, v in tree.items()}
+    return DTensor.from_local(tree, mesh, layout, run_check=False)
+
+
+def _rel_diff(got, want, l2: bool = False) -> float:
+    """max |got - want| over max |want|, or with ``l2`` ||got - want|| over
+    ||want|| (DTensors read by their local shard: the whole tensor on one
+    rank)."""
+    got = got.to_local() if hasattr(got, "to_local") else got
+    diff, want = got.float() - want.float(), want.float()
+    if l2:
+        return float(diff.norm() / want.norm().clamp_min(1e-30))
+    return float(diff.abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def run_dist(dev, procs, train_report) -> dict:
+    """The sharded train and prefill cells on a one-rank NCCL group (see
+    the module docstring, 7.), then the host traces' terms."""
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import batches_for, device_put_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shapes import build_cell
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_tree
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.train_loop import _make_step
+    from repro_torch.tree import tree_leaves
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    plain_calls = []
+    real_plain = L.flash_attention_torch
+
+    def counted_plain(q, k, v, **kw):
+        plain_calls.append(tuple(q.shape))
+        return real_plain(q, k, v, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t0
+
+    out: dict = {}
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        # -- the train cell: 3 steps unsharded, then 3 sharded ------------
+        cfg = dataclasses.replace(get_config("deepseek-7b"), n_layers=TRAIN_LAYERS)
+        shape = ShapeSpec("dist", "train", TRAIN_SEQ, TRAIN_BATCH)
+        model, opt = build_model(cfg), AdamW()
+        params = init_tree(model.param_defs(), torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        stream = batches_for(cfg, shape)
+        batches = [device_put_batch(next(stream), dev) for _ in range(DIST_STEPS)]
+        step = _make_step(model, opt, None, cfg)
+        p, o = params, opt.init(params)
+        plain_losses, plain_s = [], []
+        for b in batches:
+            (loss, p, o, _, _), s = timed(lambda: step(p, o, None, b))
+            plain_losses.append(float(loss))
+            plain_s.append(s)
+        want = p
+        del o, p
+        cell = build_cell(cfg, shape, mesh)
+        dp = _on_mesh(params, cell.in_shardings[0], mesh)
+        do = _on_mesh(opt.init(params), cell.in_shardings[1], mesh)
+        dbs = [_on_mesh(b, cell.in_shardings[2], mesh) for b in batches]
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)
+        step_args = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params) + tree_leaves(do) + tree_leaves(batches[0]))
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_lm_counts()
+        L.flash_attention_torch = counted_plain
+        losses, step_s = [], []
+        try:
+            for b in dbs:
+                (loss, dp, do), s = timed(lambda: cell.fn(dp, do, b))
+                losses.append(float(loss.to_local()))
+                step_s.append(s)
+        finally:
+            L.flash_attention_torch = real_plain
+        launches = lm_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+        # per leaf, in L2: autograd may add a gradient's contributions in
+        # another order around DTensor's own nodes, and a first AdamW step
+        # moves a parameter whose gradient is near 0 by up to lr whatever
+        # its sign, so a few elements may differ by about lr
+        param_rel = max(_rel_diff(a, b, l2=True)
+                        for a, b in zip(tree_leaves(dp), tree_leaves(want)))
+        out["train"] = {
+            "config": {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+                       "seq": TRAIN_SEQ, "dtype": str(cfg.param_dtype), "steps": DIST_STEPS,
+                       "microbatches": cell.microbatches},
+            "losses": losses, "plain_losses": plain_losses, "loss_rel": loss_rel,
+            "param_rel": param_rel, "step_s": step_s, "plain_step_s": plain_s,
+            "median_step_s": statistics.median(step_s),
+            "plain_median_step_s": statistics.median(plain_s),
+            "launches": launches, "plain_attention_calls": len(plain_calls),
+            "max_memory_allocated_gb": peak / 1e9,
+            # the step's own peak: less what stayed resident beside its
+            # arguments (the unsharded run's params, the other batches)
+            "step_peak_gb": (peak - resident + step_args) / 1e9}
+        if train_report is not None:
+            out["train"]["train_phase_median_step_s"] = \
+                train_report["runs"][0]["median_step_s"]
+        del dp, do, dbs, want, params, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+        if loss_rel > DIST_REL or param_rel > DIST_REL:
+            fail(f"dist: the sharded train steps differ from the unsharded ones: "
+                 f"losses {losses} vs {plain_losses}, params rel {param_rel:.3g}")
+        if launches["rmsnorm"] == 0 or launches["flash_attention"] == 0 or plain_calls:
+            fail(f"dist: the sharded train steps launched {launches}, "
+                 f"plain attention {len(plain_calls)} times")
+
+        # -- the prefill cell, whole: 3 runs unsharded, then 3 sharded ----
+        plain_calls.clear()
+        cfg = get_config("deepseek-7b")
+        shape = ShapeSpec("dist", "prefill", TRAIN_SEQ, TRAIN_BATCH)
+        model = build_model(cfg)
+        params = init_tree(model.param_defs(), torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        batch = device_put_batch(next(batches_for(cfg, shape)), dev)
+        plain_s = []
+        with torch.no_grad():
+            for _ in range(DIST_STEPS):
+                (want, _), s = timed(lambda: model.prefill(params, batch))
+                plain_s.append(s)
+        cell = build_cell(cfg, shape, mesh)
+        dp = _on_mesh(params, cell.in_shardings[0], mesh)
+        db = _on_mesh(batch, cell.in_shardings[1], mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated(dev)
+        step_args = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(params) + tree_leaves(batch))
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_lm_counts()
+        L.flash_attention_torch = counted_plain
+        run_s = []
+        try:
+            for _ in range(DIST_STEPS):
+                (logits, _), s = timed(lambda: cell.fn(dp, db))
+                run_s.append(s)
+        finally:
+            L.flash_attention_torch = real_plain
+        launches = lm_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        logit_rel = _rel_diff(logits, want)
+        out["prefill"] = {
+            "config": {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+                       "seq": TRAIN_SEQ, "dtype": str(cfg.param_dtype)},
+            "logit_rel": logit_rel, "step_s": run_s, "plain_step_s": plain_s,
+            "median_step_s": statistics.median(run_s),
+            "plain_median_step_s": statistics.median(plain_s),
+            "launches": launches, "plain_attention_calls": len(plain_calls),
+            "max_memory_allocated_gb": peak / 1e9,
+            "step_peak_gb": (peak - resident + step_args) / 1e9}
+        del dp, db, params, logits, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        if logit_rel > DIST_REL:
+            fail(f"dist: the sharded prefill's logits differ by {logit_rel:.3g} relative")
+        if launches["rmsnorm"] == 0 or launches["flash_attention"] == 0 or plain_calls:
+            fail(f"dist: the sharded prefill launched {launches}, "
+                 f"plain attention {len(plain_calls)} times")
+    finally:
+        dist.destroy_process_group()
+
+    # -- the host traces: the walker's terms beside the measured steps ----
+    cells, dryrun = finish_dist_traces(procs)
+    for kind in ("train", "prefill"):
+        o, c = out[kind], cells[kind]
+        r = c["roofline"]
+        dominant = max(r["compute_s"], r["memory_s"], r["collective_s"])
+        o["walker"] = c
+        o["dominant_s"] = dominant
+        o["measured_share"] = dominant / o["median_step_s"]
+        print(f"dist {kind}: {o['config']['n_layers']} layers, sharded median step "
+              f"{o['median_step_s']:.4f} s, unsharded {o['plain_median_step_s']:.4f} s"
+              + (f", train phase {o['train_phase_median_step_s']:.4f} s"
+                 if "train_phase_median_step_s" in o else "")
+              + f"; {'losses' if kind == 'train' else 'logits'} rel "
+              f"{o.get('loss_rel', o.get('logit_rel')):.3g}"
+              + (f", params rel {o['param_rel']:.3g}" if kind == "train" else "")
+              + f"; launches {o['launches']}, plain attention {o['plain_attention_calls']}; "
+              f"peak {o['max_memory_allocated_gb']:.2f} GB allocated, the step's own "
+              f"{o['step_peak_gb']:.2f} GB, walker {c['memory_eager']['peak_bytes'] / 1e9:.2f} "
+              f"GB ({c['memory']['peak_bytes'] / 1e9:.2f} GB with the state donated); "
+              f"walker {c['flops']:.4g} FLOPs, {c['bytes']:.4g} bytes (traced in "
+              f"{c['trace_s']:.1f} s, {c['nodes']} nodes); fp32 roofline compute "
+              f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, bound {r['bound']}; "
+              f"measured share of the dominant term {o['measured_share']:.3f}")
+    out["dryrun"] = [{"arch": r["arch"], "shape": r["shape"], "trace_s": r["trace_s"],
+                      "graph_nodes": r["graph_nodes"], "memory": r["memory"],
+                      "roofline": r["roofline"]} for r in dryrun]
+    for r in out["dryrun"]:
+        f = r["roofline"]
+        print(f"dist dry run {r['arch']} {r['shape']} (256 GPUs, H100 constants): traced in "
+              f"{r['trace_s']:.1f} s ({r['graph_nodes']} nodes); compute {f['compute_s']:.4g} s, "
+              f"memory {f['memory_s']:.4g} s, collective {f['collective_s']:.4g} s, "
+              f"bound {f['bound']}, useful {f['useful_ratio']:.3f}, roofline fraction "
+              f"{f['roofline_frac']:.3f}; peak {r['memory']['peak_per_device_gb']} GB")
+    return out
+
+
 def time_lm(libs, dev, gen, serve_report) -> dict:
     """Each LM kernel at the serving shapes beside its bound, its plain
     version and one library call."""
@@ -2356,6 +2678,8 @@ def main(argv=None) -> int:
     except ImportError as e:
         fail(f"the port is not beside this script ({e})")
     t_start = time.perf_counter()
+    # the dist phase's host traces run beside everything else
+    dist_procs = start_dist_traces() if "dist" in only else None
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     card = card_line()
@@ -2484,6 +2808,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         save()
 
+    # -- 5b. the distributed and launch layer on a 1 x 1 mesh ---------------
+    dist_report = None
+    if "dist" in only:
+        dist_report = report["dist"] = run_dist(dev, dist_procs, train_report)
+        torch.cuda.empty_cache()
+        save()
+
     # -- 6. times at the main paths' shapes ---------------------------------
     if "time" in only:
         report["euclid_times"] = time_euclid(rows, dev, gen)
@@ -2579,6 +2910,8 @@ def main(argv=None) -> int:
         else:
             entry["families_launches"] = families_report["launches"][name]
         entry["recurrent_launches"] = recurrent_report["launches"][name]
+        entry["dist_launches"] = {kind: dist_report[kind]["launches"][name]
+                                  for kind in ("train", "prefill")}
         entry["front_launches"] = front_report["launches"][name]
         if "tf32_max_abs_err" in chk:
             entry["tf32_control_max_abs_err"] = chk["tf32_max_abs_err"]

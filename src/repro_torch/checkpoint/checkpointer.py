@@ -13,8 +13,14 @@ Mirrors ``repro/checkpoint/checkpointer.py``:
   * **Retention**: keep the newest ``keep`` checkpoints.
 
 Tensors are copied to the host to be written; ``restore`` places the
-leaves on ``device``. There is no ``shardings`` argument: one card has
-no mesh.
+leaves on ``device``.
+
+**Sharded state** (the reference's elastic restore): a DTensor leaf is
+saved whole, so a checkpoint does not depend on the mesh that wrote it.
+Gathering a DTensor is a collective: in a group, every rank calls
+``save`` (rank 0 alone writes, then all wait for it). ``restore(...,
+shardings=)`` takes a tree of ``(mesh, placements)`` and lays each leaf
+out on its (possibly different) mesh; every rank reads the file.
 """
 
 from __future__ import annotations
@@ -57,8 +63,30 @@ def _unflatten_into(skeleton: Any, flat: dict[str, Any], path=()) -> Any:
 
 def _to_numpy(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()       # a collective: every rank calls it
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _is_dtensor(x: Any) -> bool:
+    if not torch.distributed.is_available() or not torch.distributed.is_initialized():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 of a group, or the only one."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
 
 
 class Checkpointer:
@@ -70,9 +98,13 @@ class Checkpointer:
     # ------------------------------------------------------------- saving
     def save(self, step: int, state: Any, extra: dict | None = None) -> str:
         flat = _flatten(state)
+        arrays = {k: _to_numpy(v) for k, v in flat.items()}
+        final = os.path.join(self.dir, f"step_{step:010d}")
+        if not _writer():
+            _barrier()
+            return final
         tmp = os.path.join(self.dir, f"tmp.{uuid.uuid4().hex}")
         os.makedirs(tmp)
-        arrays = {k: _to_numpy(v) for k, v in flat.items()}
         np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
         manifest = {
             "step": step,
@@ -83,12 +115,12 @@ class Checkpointer:
             json.dump(manifest, f)
             f.flush()
             os.fsync(f.fileno())
-        final = os.path.join(self.dir, f"step_{step:010d}")
         if os.path.exists(final):
             shutil.rmtree(final)
         os.replace(tmp, final)                       # atomic publish
         self._update_latest(step)
         self._gc()
+        _barrier()
         return final
 
     def _update_latest(self, step: int) -> None:
@@ -123,9 +155,12 @@ class Checkpointer:
             return int(f.read().strip())
 
     def restore(self, skeleton: Any, step: int | None = None, *,
-                device: "torch.device | str | None" = None) -> tuple[Any, dict]:
+                device: "torch.device | str | None" = None,
+                shardings: Any = None) -> tuple[Any, dict]:
         """Restore into ``skeleton``'s structure: a tensor per leaf, on
-        ``device`` (each skeleton tensor's own device when None)."""
+        ``device`` (each skeleton tensor's own device when None); with
+        ``shardings`` (a tree of ``(mesh, placements)`` shaped like
+        ``skeleton``), each leaf laid out as a DTensor on its mesh."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -140,4 +175,28 @@ class Checkpointer:
             path: torch.from_numpy(flat[path]).to(
                 device if device is not None else getattr(like, "device", "cpu"))
             for path, like in _flatten(skeleton).items()}
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            layouts = _flatten_layouts(shardings)
+            # every rank read the whole array: no rank sends its data
+            placed = {path: distribute_tensor(
+                t.to(layouts[path][0].device_type), *layouts[path], src_data_rank=None)
+                for path, t in placed.items()}
         return _unflatten_into(skeleton, placed), manifest
+
+
+def _flatten_layouts(tree: Any, path=()) -> dict[str, tuple]:
+    """``_flatten`` of a tree whose leaves are ``(mesh, placements)``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten_layouts(tree[k], path + (str(k),)))
+        return out
+    if isinstance(tree, (tuple, list)) and not (
+            len(tree) == 2 and hasattr(tree[0], "mesh_dim_names")):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flatten_layouts(v, path + (str(i),)))
+        return out
+    return {"/".join(path): tuple(tree)}

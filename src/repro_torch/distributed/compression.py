@@ -3,8 +3,8 @@
 Mirrors ``repro/distributed/compression.py``: the numerics (quantize,
 dequantize, error feedback) the train loop applies with
 ``compress_grads``. On a cluster the quantized tensors are what crosses
-the data-parallel axis; the collective waits for the distributed slice
-of the port, as the rest of ``distributed/`` does.
+the data-parallel axis; as in the reference, the train loop applies the
+numerics and no collective of its own.
 """
 
 from __future__ import annotations

@@ -133,12 +133,15 @@ def decode_attention(
     length: "torch.Tensor | int | None" = None,
     scale: float | None = None,
     k_chunk: int = 4096,
+    reduce_scores=None,
 ) -> torch.Tensor:
     """Flash-decoding: online-softmax loop over KV chunks.
 
     Chunking bounds the live working set to one chunk. A ragged cache
     (S not a multiple of the chunk) falls back to one chunk, as the
-    reference does.
+    reference does. ``reduce_scores`` completes each chunk's scores
+    where the head dim is split across ranks (a sharded run's sum over
+    the ranks that hold the other parts).
     """
     B, Tq, H, Dh = q.shape
     _, S, Hk, _ = k.shape
@@ -163,6 +166,8 @@ def decode_attention(
         vblk = v[:, ik * kc:(ik + 1) * kc]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
                          kblk.to(torch.float32)) * scale
+        if reduce_scores is not None:
+            s = reduce_scores(s)
         if len_b is not None:
             valid = (ik * kc + k_ids)[None, :] < len_b
             s = torch.where(valid[:, None, None, None, :], s,

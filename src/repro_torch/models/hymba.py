@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef, cast_params
 from repro_torch.models.ssm import ssm_branch, ssm_defs
@@ -87,7 +88,7 @@ class HymbaLM(nn.Module):
         mix = attn * lp["beta_attn"].to(h.dtype) + s * lp["beta_ssm"].to(h.dtype)
         h = h + 0.5 * mix
         h = h + L.mlp(L.norm(h, lp["ln2"], cfg.norm), lp["ffn"], cfg)
-        return h, new_cache
+        return shard(h, "batch", "seq", "embed"), new_cache
 
     def _embed(self, params, tokens):
         B, T = tokens.shape

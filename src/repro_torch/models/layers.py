@@ -3,9 +3,23 @@
 Mirrors ``repro/models/layers.py``: pure functions over param dicts
 (declared via ParamDef), interleaved-pair RoPE, Qwen2-VL's M-RoPE, the
 sinusoidal positions and cross-attention of the encoder-decoder family.
-The reference's ``shard`` annotations drop out (there is no mesh), and so do its u16
-bit views around bf16 caches (an XLA:CPU workaround): the decode cache
-is updated in place, slot by slot, instead of rebuilt.
+The reference's ``shard`` annotations stand at its own sites
+(:func:`repro_torch.distributed.sharding.shard`): inside a rules scope
+they redistribute DTensor activations, anywhere else each is one global
+check and the identity. Its u16 bit views around bf16 caches (an
+XLA:CPU workaround) drop out: the decode cache is updated in place, slot
+by slot, instead of rebuilt.
+
+**Sharded runs.** Under DTensor the products, the elementwise ops and
+the cross-entropy go through DTensor's sharding propagation; the hand
+kernels see only local shards (``data_ptr()`` of a DTensor is not its
+shard). ``rms_norm`` runs on each rank's rows (``act_embed`` is
+replicated, so each row is whole there) and attention on each rank's
+batch rows and heads: where the rules shard the query heads over
+``model`` and replicate the KV heads (the train and prefill rules when
+the KV heads do not divide the axis), each rank takes the KV heads its
+own query heads read, so the local GQA map stays right on every rank.
+The token embedding is ``embedding`` on a DTensor (:func:`lookup`).
 
 **What runs where.** In the reference, the step-programs are jitted: the
 layers see tracers there, never route through a kernel-plane handle, and
@@ -43,6 +57,8 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shlib
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.attention.attention import (
     FlashAttentionFunction, flash_attention_cuda)
 from repro_torch.kernels.attention.ops import decode_attention, flash_attention_torch
@@ -105,6 +121,12 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
 
 # ----------------------------------------------------------------- norms
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if shlib.is_dtensor(x):
+        # each rank's whole rows through the kernel (or its plain version)
+        x, scale = shlib.settle(x), shlib.replicated(scale)
+        return shlib.on_local(lambda xl, wl: rms_norm(xl, wl, eps), x, scale,
+                              out_like=x,
+                              grad_placements=(None, shlib.partial_over(x)))
     plane = _plane_routes()
     shape = x.shape
     if plane is not None and eps == 1e-6 and x.dim() >= 2:
@@ -169,7 +191,7 @@ def apply_mrope(
     # Select which positional stream drives each frequency pair.
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))               # (half,)
+        torch.tensor(sections, device=x.device), output_size=half)  # (half,)
     pos = positions.to(torch.float32)[sec_id]                  # (half, B, T)
     ang = pos.permute(1, 2, 0) * freqs                         # (B, T, half)
     cos = torch.cos(ang)[:, :, None, :]
@@ -207,9 +229,21 @@ def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     return defs
 
 
+def _merged(w: torch.Tensor, keep: int) -> torch.Tensor:
+    """``w`` with its dims from ``keep`` on merged into one (as a DTensor,
+    rank by rank: the merged dims' leading one carries the sharding)."""
+    shape = (*w.shape[:keep], math.prod(w.shape[keep:]))
+    if not shlib.is_dtensor(w):
+        return w.reshape(shape)
+    pl = tuple(type(p)(min(p.dim, keep)) if p.is_shard() else p for p in w.placements)
+    return shlib.reshape_local(w, shape, pl)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, T, d) @ w (d, *heads) -> (B, T, *heads), one matmul."""
-    out = torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1))
+    out = torch.matmul(x, _merged(w.to(x.dtype), 1))
+    if shlib.is_dtensor(out):
+        out = shlib.unshard_ragged(out, out.dim() - 1, w.shape[1])
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
@@ -221,13 +255,27 @@ def qkv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
+    q = shard(q, "batch", "seq", "heads", None)
+    k = shard(k, "batch", "seq", "kv", None)
+    v = shard(v, "batch", "seq", "kv", None)
     return q, k, v
 
 
 def attn_out(o: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     B, T, H, Dh = o.shape
     w = p["wo"].to(o.dtype)
-    return torch.matmul(o.reshape(B, T, H * Dh), w.reshape(H * Dh, w.shape[-1]))
+    if shlib.is_dtensor(o):
+        # merged rank by rank: the backward of a view would split the
+        # merged dim's gradient over ragged heads, which DTensor refuses
+        o = _merged(shlib.unshard_ragged(shlib.settle(o), 2), 2)
+    else:
+        o = o.reshape(B, T, H * Dh)
+    w = w.reshape(H * Dh, w.shape[-1]) if not shlib.is_dtensor(w) else \
+        shlib.reshape_local(w, (H * Dh, w.shape[-1]), tuple(
+            type(p)(0 if p.dim < 2 else 1) if p.is_shard() else p
+            for p in w.placements))
+    out = torch.matmul(o, w)
+    return shard(out, "batch", "seq", "embed")
 
 
 def _rotate(q, k, positions, cfg: ModelConfig):
@@ -246,6 +294,9 @@ def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
     """The step-programs' attention (see the module docstring): the
     plane's chunks unless ``chunks`` are given."""
     qc, kc = chunks if chunks is not None else plane_attn_chunks(cfg)
+    if shlib.is_dtensor(q):
+        return _attend_local(q, k, v, cfg, causal=causal, q_offset=q_offset,
+                             chunks=(qc, kc))
     if q.is_cuda and q_offset == 0 and cfg.window is None:
         point = {"block_q": min(qc, q.shape[1]), "block_kv": min(kc, k.shape[1])}
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -255,6 +306,101 @@ def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
     return flash_attention_torch(
         q, k, v, causal=causal, q_offset=q_offset, window=cfg.window,
         q_chunk=qc, k_chunk=kc, scores_f32=cfg.attn_scores_f32)
+
+
+def _kv_pick(q, k):
+    """Which of its local KV heads each local query head reads.
+
+    Local query head ``i`` is global head ``off + i`` and reads KV head
+    ``(off + i) // G``. ``None`` where the local call's own GQA map
+    (``i // (h / hk)``) already gives that; a slice where the rank's query
+    heads cover whole groups (query heads sharded, KV heads replicated);
+    else one KV head per query head, by index.
+    """
+    G = q.shape[2] // k.shape[2]
+    h, off = shlib.local_range(q, 2)
+    hk, koff = shlib.local_range(k, 2)
+    need = [(off + i) // G - koff for i in range(h)]
+    if hk and h % hk == 0 and need == [i // (h // hk) for i in range(h)]:
+        return None
+    if h % G == 0 and off % G == 0:
+        return slice(need[0], need[-1] + 1)
+    return need
+
+
+def _take_heads(kl, vl, pick):
+    if isinstance(pick, slice):
+        return kl[:, :, pick], vl[:, :, pick]
+    if pick is not None:
+        idx = torch.tensor(pick, device=kl.device)
+        return kl.index_select(2, idx), vl.index_select(2, idx)
+    return kl, vl
+
+
+def _attend_local(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int,
+                  chunks: tuple[int, int]):
+    """:func:`_attend` on each rank's batch rows and heads, the rank's KV
+    heads picked by :func:`_kv_pick` (so the local GQA map stays right on
+    every rank where the query heads are sharded and the KV heads are
+    not)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    q, k, v = shlib.settle(q), shlib.settle(k), shlib.settle(v)
+    pick = _kv_pick(q, k)
+    # K/V replicated where the queries are split: each rank's gradient
+    # is its query heads' share of the sum
+    kv_grad = tuple(
+        Partial() if isinstance(pq, Shard) and not isinstance(pk, Shard) else pk
+        for pq, pk in zip(q.placements, k.placements))
+
+    def local(ql, kl, vl):
+        kl, vl = _take_heads(kl, vl, pick)
+        return _attend(ql, kl, vl, cfg, causal=causal, q_offset=q_offset,
+                       chunks=chunks)
+
+    return shlib.on_local(local, q, k, v, out_like=q,
+                          grad_placements=(None, kv_grad, kv_grad))
+
+
+def _decode_local(q, k, v, *, length, k_chunk: int):
+    """``decode_attention`` on each rank's shards of one query and a
+    (B, S, Hk, Dh) cache. The query is laid out as the cache on its batch
+    and head-dim mesh dims; where the cache's head dim is split
+    (``kv_dh``), each chunk's scores are summed over those ranks before
+    the softmax (the reference's psum of the score contraction); the
+    output is laid out as the query came in."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+
+    q, k, v = shlib.settle(q), shlib.settle(k), shlib.settle(v)
+    mesh = k.device_mesh
+    q_pl = q.placements
+    target, dh_dims = [], []
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if pk.is_shard(3):
+            dh_dims.append(i)
+            target.append(Shard(3))
+        elif pk.is_shard(0) or pk.is_shard(2):
+            target.append(pk)
+        else:
+            target.append(pq if pq.is_shard(2) else Replicate())
+    q = q.redistribute(mesh, tuple(target))
+    pick = _kv_pick(q, k)
+    scale = q.shape[-1] ** -0.5
+
+    def reduce(s):
+        for i in dh_dims:
+            s = funcol.all_reduce(s, "sum", (mesh, i))
+        return s
+
+    def local(ql, kl, vl):
+        kl, vl = _take_heads(kl, vl, pick)
+        return decode_attention(ql, kl, vl, length=length, scale=scale,
+                                k_chunk=k_chunk,
+                                reduce_scores=reduce if dh_dims else None)
+
+    o = shlib.on_local(local, q, k, v, out_like=q)
+    return o.redistribute(mesh, q_pl)
 
 
 def self_attention(
@@ -334,10 +480,15 @@ def decode_self_attention(
         S_eff = S
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    cache_k = shard(cache_k, "batch", "kv_seq", "kv", "kv_dh")
+    cache_v = shard(cache_v, "batch", "kv_seq", "kv", "kv_dh")
     length = min(pos + 1, S_eff)
     plane = _plane_routes()
     o = None
-    if plane is not None:
+    if shlib.is_dtensor(q):
+        o = _decode_local(q, cache_k, cache_v, length=length,
+                          k_chunk=plane_decode_chunk(cfg))
+    elif plane is not None:
         # eager call with an active plane: flash-decoding runs as an
         # independently tuned unit, keyed per cache-length bucket
         o = plane.call("decode_attention", q, cache_k, cache_v, length)
@@ -359,7 +510,10 @@ def cross_attention(
     through flash-decoding, more through non-causal flash attention at
     the config's chunks."""
     q = _proj(x, p["wq"])
-    if x.shape[1] == 1:
+    if x.shape[1] == 1 and shlib.is_dtensor(q):
+        o = _decode_local(q, enc_k, enc_v, length=None,
+                          k_chunk=plane_decode_chunk(cfg))
+    elif x.shape[1] == 1:
         o = decode_attention(q, enc_k, enc_v, k_chunk=plane_decode_chunk(cfg))
     else:
         o = _attend(q, enc_k, enc_v, cfg, causal=False,
@@ -398,7 +552,9 @@ def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
         h = torch.matmul(x, p["w_up"].to(x.dtype))
         h = (torch.nn.functional.gelu(h, approximate="tanh") if cfg.act == "gelu"
              else torch.square(torch.relu(h)))
-    return torch.matmul(h, p["w_down"].to(x.dtype))
+    h = shard(h, "batch", "seq", "ffn")
+    out = torch.matmul(h, p["w_down"].to(x.dtype))
+    return shard(out, "batch", "seq", "embed")
 
 
 # ------------------------------------------------------------- embeddings
@@ -410,16 +566,113 @@ def embedding_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On a DTensor the table's columns are gathered
+    first (the FSDP gather of its ``embed`` dim); where its rows (vocab)
+    are split across ranks the gather is ``embedding`` (DTensor has no
+    strategy for indexing a sharded table), else each rank indexes its
+    whole table with its own tokens, as one card does."""
+    if not shlib.is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import Replicate
+
+    mesh = table.device_mesh
+    split = [i for i, p in enumerate(table.placements)
+             if p.is_shard(0) and mesh.size(i) > 1]
+    rows = tuple(p if i in split else Replicate() for i, p in enumerate(table.placements))
+    table = table.redistribute(mesh, rows)
+    if split:
+        return torch.nn.functional.embedding(tokens, table)
+    tokens = shlib.settle(tokens)
+    out = shlib.template(tokens, (*tokens.shape, table.shape[1]), table.dtype)
+    return shlib.on_local(lambda t, ix: t[ix], table, tokens, out_like=out,
+                          grad_placements=(shlib.partial_over(tokens), None))
+
+
+class _SettledGrad(torch.autograd.Function):
+    """The identity, whose gradient has any pending sum carried out: a
+    gather from a vocabulary-sharded table leaves a masked partial sum,
+    and DTensor cannot turn a plain pending sum (as ``layer_norm``'s
+    backward leaves) into that masked one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return shlib.settle(grad)
+
+
 def embed_tokens(tokens: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    return p["embed"].to(cfg.compute_dtype)[tokens]
+    x = shard(lookup(p["embed"].to(cfg.compute_dtype), tokens), "batch", "seq", "embed")
+    return _SettledGrad.apply(x) if shlib.is_dtensor(x) else x
 
 
 def logits_out(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     logits = torch.matmul(x, p["unembed"].to(x.dtype))
+    logits = shard(logits, "batch", "seq", "vocab")
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token negative log-likelihood over one rank's slice [lo, lo +
+    v) of the vocabulary: the max, the sum of exponentials and the gold
+    logit are reduced over ``groups`` (the mesh dims that split the
+    vocabulary), and the gradient is each rank's slice of softmax minus
+    one-hot, with no collective."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, lo: int, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        ctx.dtype = logits.dtype
+        x = logits.to(torch.float32)
+        v = x.shape[-1]
+        m = x.amax(dim=-1)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        e = torch.exp(x - m.unsqueeze(-1))
+        total = e.sum(dim=-1)
+        for g in groups:
+            total = funcol.all_reduce(total, "sum", g)
+        local = labels.long() - lo
+        inside = ((local >= 0) & (local < v)).to(torch.float32)
+        idx = local.clamp(0, v - 1).unsqueeze(-1)
+        gold = torch.gather(x, -1, idx).squeeze(-1) * inside
+        for g in groups:
+            gold = funcol.all_reduce(gold, "sum", g)
+        ctx.save_for_backward(e, total, idx, inside)
+        return torch.log(total) + m - gold
+
+    @staticmethod
+    def backward(ctx, grad):
+        e, total, idx, inside = ctx.saved_tensors
+        p = e / total.unsqueeze(-1)
+        p = p.scatter_add(-1, idx, -inside.unsqueeze(-1))
+        return (p * grad.unsqueeze(-1)).to(ctx.dtype), None, None, None
+
+
+def _vocab_parallel_nll(logits, labels, split: list[int]):
+    """The per-token NLL of ``logits`` whose vocabulary the mesh dims
+    ``split`` shard, on local shards (:class:`_VocabParallelNLL`): the
+    logits are never gathered whole."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = logits.device_mesh
+    logits = shlib.settle(logits)
+    tok_pl = tuple(Replicate() if i in split else p
+                   for i, p in enumerate(logits.placements))
+    labels = shlib.settle(labels).redistribute(mesh, tok_pl)
+    _, lo = shlib.local_range(logits, 2)
+    groups = [(mesh, i) for i in split]
+    out = shlib.template(logits, logits.shape[:2], torch.float32, tok_pl)
+    return shlib.on_local(
+        lambda x, y: _VocabParallelNLL.apply(x, y, lo, groups), logits, labels,
+        out_like=out)
 
 
 def cross_entropy(
@@ -427,10 +680,18 @@ def cross_entropy(
     labels: torch.Tensor,      # (B, T) int
     mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    split = [i for i, p in enumerate(logits.placements)
+             if p.is_shard(2) and logits.device_mesh.size(i) > 1] \
+        if shlib.is_dtensor(logits) else []
+    if split:
+        nll = _vocab_parallel_nll(logits, labels, split)
+    else:
+        logits = logits.to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        # gathered and subtracted at (B, T, 1): a DTensor gather over
+        # sharded vocab holds a masked partial sum, settled at that shape
+        gold = torch.gather(logits, -1, labels.long().unsqueeze(-1))
+        nll = (lse.unsqueeze(-1) - gold).squeeze(-1)
     if mask is not None:
         mask = mask.to(torch.float32)
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -5,15 +5,17 @@ parameters once as a nested dict of ``ParamDef`` (shape + logical axes +
 initializer); ``init_tree`` materializes them, on an explicit device from
 an explicit ``torch.Generator``. The tree has the reference's layout (the
 stacked layers keep their leading L axis), so a JAX-initialised tree
-carries over as it is (``repro_torch.interop.params_from_jax``). The
-reference's ``spec_tree`` and ``abstract_tree`` wait for the distributed
-slice of the port.
+carries over as it is (``repro_torch.interop.params_from_jax``). From
+the same defs, ``spec_tree`` gives the tree of partition specs (logical
+axes resolved to mesh axes by ``repro_torch.distributed.sharding``) and
+``abstract_tree`` a tree of meta tensors that allocates nothing (the
+dry run's stand-ins for ``jax.ShapeDtypeStruct``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -65,6 +67,24 @@ def init_tree(defs: dict, generator: torch.Generator, *,
             arr = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                               device=device).mul_(d.scale).to(dtype)
         _set(out, path, arr)
+    return out
+
+
+def spec_tree(defs: dict, resolve: Callable[[str | None], Any]) -> dict:
+    """resolve(logical_axis) -> mesh axis name(s) or None."""
+    from repro_torch.distributed.sharding import PartitionSpec as P
+
+    out: dict = {}
+    for path, d in _iter_defs(defs):
+        _set(out, path, P(*(resolve(a) for a in d.axes)))
+    return out
+
+
+def abstract_tree(defs: dict, dtype: torch.dtype = torch.float32) -> dict:
+    """Meta tensors of each def's shape and ``dtype``: no storage."""
+    out: dict = {}
+    for path, d in _iter_defs(defs):
+        _set(out, path, torch.empty(d.shape, dtype=dtype, device="meta"))
     return out
 
 

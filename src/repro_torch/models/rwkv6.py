@@ -19,7 +19,18 @@ reproduces the reference, not the exact recurrence.
 The norms launch the rmsnorm hand kernel on the card; the per-head group
 norm and every product are plain PyTorch. ``loss`` checkpoints each
 layer when grad mode is on; the decode state (S, xa, xc) comes back as
-new stacked tensors. The reference's ``shard`` annotations drop out.
+new stacked tensors.
+
+The reference's ``shard`` annotations stand at its own sites. Under
+DTensor (a sharded run) the time mix runs on local shards
+(:func:`_time_mix_sharded`): DTensor cannot propagate its reshapes (the
+LoRA's 5 x 32 split of a sharded product), and the WKV recurrence is
+per head, so each rank of the model axis takes its own heads (the
+r/k/v/g columns, ``u``, ``ln_x`` and the rows of ``wo``) with the
+token-shift LoRAs whole and the decay LoRA's columns of its heads; the output is a partial sum over the model
+axis that the closing ``shard`` reduces. Where the heads do not divide
+the model axis, every rank takes all of them (the time mix replicated
+over that axis). The channel mix goes through DTensor's propagation.
 """
 
 from __future__ import annotations
@@ -31,6 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shlib
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef, cast_params
 from repro_torch.models.transformer import checkpointed, layer_params, stack_defs
@@ -140,9 +153,79 @@ def wkv_chunked(r, k, v, logw, u, S0, chunk: int):
 
 def time_mix(x, p, cfg: ModelConfig, *, S0=None, x_prev=None):
     """Returns (out, S_final, last_x). x: (B, T, d)."""
+    if shlib.is_dtensor(x):
+        return _time_mix_sharded(x, p, cfg, S0=S0, x_prev=x_prev)
+    return _time_mix(x, p, cfg, S0=S0, x_prev=x_prev)
+
+
+def _time_mix_sharded(x, p, cfg: ModelConfig, *, S0=None, x_prev=None):
+    """:func:`_time_mix` on each rank's batch rows and heads (see the
+    module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    m = names.index("model")
+    C = cfg.rwkv_head_size
+    H = x.shape[-1] // C
+    tp = H % mesh.size(m) == 0          # heads over the model axis
+    x = shlib.settle(x)
+    batch_pl = tuple(Replicate() if i == m else pl for i, pl in enumerate(x.placements))
+    x = x.redistribute(mesh, batch_pl)
+
+    def laid(t, dim):
+        """``t`` whole except ``dim`` over the model axis (when ``tp``)."""
+        pl = tuple(Shard(dim) if (i == m and tp and dim is not None) else Replicate()
+                   for i in range(len(names)))
+        return t.redistribute(mesh, pl)
+
+    heads = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "wo": 0, "u": 0, "ln_x": 0,
+             "w_base": 0, "w_lora_b": 1}
+    names_p = sorted(p)
+    ws = [laid(p[n], heads.get(n)) for n in names_p]
+    # a weight's gradient: a sum over this rank's rows, and over the
+    # model axis for what each rank reads whole while it serves its heads
+    def grad_of(n):
+        def one(i, pl):
+            if i == m:
+                return Partial() if tp and n not in heads else pl
+            return Partial() if x.placements[i].is_shard() else pl
+        return tuple(one(i, pl) for i, pl in enumerate(laid(p[n], heads.get(n)).placements))
+    over_model = tuple(Partial() if i == m and tp else pl
+                       for i, pl in enumerate(batch_pl))
+    state_pl = tuple(Shard(1) if i == m and tp else pl for i, pl in enumerate(batch_pl))
+    extra = []
+    if S0 is not None:
+        extra.append(shlib.settle(S0).redistribute(mesh, state_pl))
+    if x_prev is not None:
+        extra.append(shlib.settle(x_prev).redistribute(mesh, batch_pl))
+    B, T, d = x.shape
+
+    def local(xl, *rest):
+        pl_ = dict(zip(names_p, rest[:len(names_p)]))
+        more = list(rest[len(names_p):])
+        s0 = more.pop(0) if S0 is not None else None
+        xp = more.pop(0) if x_prev is not None else None
+        out, S, _ = _time_mix(xl, pl_, cfg, S0=s0, x_prev=xp,
+                              heads=pl_["u"].shape[0])
+        return out, S
+
+    out_like = shlib.template(x, x.shape, x.dtype, over_model)
+    s_like = shlib.template(x, (B, H, C, C), torch.float32, state_pl)
+    out, S = shlib.on_local(
+        local, x, *ws, *extra, out_like=(out_like, s_like),
+        grad_placements=(over_model, *(grad_of(n) for n in names_p),
+                         *(None for _ in extra)))
+    return shard(out, "batch", "seq", "embed"), S, x[:, -1]
+
+
+def _time_mix(x, p, cfg: ModelConfig, *, S0=None, x_prev=None, heads=None):
+    """The time mix over ``heads`` heads (all of ``x``'s when None; a
+    rank's own in a sharded run, with the r/k/v/g and decay columns,
+    ``u``, ``ln_x`` and the rows of ``wo`` for those heads)."""
     B, T, d = x.shape
     C = cfg.rwkv_head_size
-    H = d // C
+    H = d // C if heads is None else heads
     xx = _token_shift(x, x_prev) - x
     xw, xk, xv, xr, xg = _ddlerp(x, xx, p)
 
@@ -162,16 +245,16 @@ def time_mix(x, p, cfg: ModelConfig, *, S0=None, x_prev=None):
     if S0 is None:
         S0 = torch.zeros((B, H, C, C), dtype=torch.float32, device=x.device)
     y, S = wkv_chunked(rs, ks, vs, ws, p["u"].to(torch.float32), S0, cfg.scan_chunk)
-    y = y.reshape(B, T, d).to(x.dtype)
+    y = y.reshape(B, T, H * C).to(x.dtype)
     # per-head group norm (scale-only), then output gating
     yh32 = y.reshape(B, T, H, C).to(torch.float32)
     mu = torch.mean(yh32, dim=-1, keepdim=True)
     var = torch.var(yh32, dim=-1, keepdim=True, unbiased=False)
     yh = ((yh32 - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype)
-    y = yh.reshape(B, T, d) * p["ln_x"].to(x.dtype)
+    y = yh.reshape(B, T, H * C) * p["ln_x"].to(x.dtype)
     y = y * F.silu(g)
     out = torch.matmul(y, p["wo"].to(x.dtype))
-    return out, S, x[:, -1]
+    return shard(out, "batch", "seq", "embed"), S, x[:, -1]
 
 
 def channel_mix(x, p, cfg: ModelConfig, *, x_prev=None):
@@ -179,9 +262,10 @@ def channel_mix(x, p, cfg: ModelConfig, *, x_prev=None):
     xk = x + xx * p["mu_k"].to(x.dtype)
     xr = x + xx * p["mu_r"].to(x.dtype)
     k = torch.square(torch.relu(torch.matmul(xk, p["wk"].to(x.dtype))))
+    k = shard(k, "batch", "seq", "ffn")
     kv = torch.matmul(k, p["wv"].to(x.dtype))
     r = torch.sigmoid(torch.matmul(xr, p["wr"].to(x.dtype)))
-    return r * kv, x[:, -1]
+    return shard(r * kv, "batch", "seq", "embed"), x[:, -1]
 
 
 class RWKV6LM(nn.Module):
@@ -202,7 +286,7 @@ class RWKV6LM(nn.Module):
                                 S0=S0, x_prev=xa)
         h = h + a
         c, last_c = channel_mix(L.norm(h, lp["ln2"], cfg.norm), lp["cm"], cfg, x_prev=xc)
-        return h + c, S, last_a, last_c
+        return shard(h + c, "batch", "seq", "embed"), S, last_a, last_c
 
     def _forward(self, params, x, state=None, *, remat: bool = False):
         """state: (S, xa, xc) stacked over layers, or None (train and

@@ -17,8 +17,13 @@ sequence at once), with the reference's combine ``(a1, b1), (a2, b2) ->
 from one chunk to the next, as the reference's ``lax.scan`` does. The
 products of ``a`` stay products: a cumulative sum of ``log a`` read back
 through ``exp(-L)`` would overflow fp32 over a chunk at hymba's decays,
-and a loop over tokens would cost a launch per token and layer. The
-reference's ``shard`` annotations drop out (there is no mesh).
+and a loop over tokens would cost a launch per token and layer.
+
+The reference's ``shard`` annotations stand at its own sites: under
+DTensor (a sharded run) the inner channels follow ``heads`` over the
+model axis and the rest goes through DTensor's propagation, with the
+input-dependent B, C and step (contractions over the channels) reduced
+before the scan.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shlib
+from repro_torch.distributed.sharding import shard
 from repro_torch.models.params import ParamDef
 
 
@@ -112,6 +119,7 @@ def ssm_branch(x, p, cfg: ModelConfig, *, state=None):
 
     xz = torch.matmul(x, p["w_in"].to(x.dtype))
     xi, z = torch.chunk(xz, 2, dim=-1)                    # (B, T, di) each
+    xi = shard(xi, "batch", "seq", "heads")
     xi, conv_buf = _causal_conv(xi, p["conv_w"].to(x.dtype), conv_buf)
     xi = F.silu(xi)
 
@@ -120,6 +128,11 @@ def ssm_branch(x, p, cfg: ModelConfig, *, state=None):
     ct = torch.matmul(xf, p["w_c"].to(torch.float32))
     # rank-1 data-dependent step size (scalar per token + per-channel bias)
     dt_raw = torch.matmul(xf, p["w_dt"].to(torch.float32))  # (B, T, 1)
+    if shlib.is_dtensor(bt):
+        # the contractions over the sharded channels end in pending sums:
+        # settle the small (B, T, st) results here, not the scan's
+        # (B, T, di, st) operands at every doubling pass
+        bt, ct, dt_raw = shlib.settle(bt), shlib.settle(ct), shlib.settle(dt_raw)
     dt = F.softplus(dt_raw + p["dt_bias"].to(torch.float32)[None, None])  # (B, T, di)
     A = -torch.exp(p["a_log"].to(torch.float32))          # (di, st), negative
     a = torch.exp(dt[..., None] * A[None, None])          # (B, T, di, st)
@@ -137,4 +150,4 @@ def ssm_branch(x, p, cfg: ModelConfig, *, state=None):
     y = y + p["d_skip"].to(torch.float32)[None, None] * xf
     y = y.to(x.dtype) * F.silu(z)
     out = torch.matmul(y, p["w_out"].to(x.dtype))
-    return out, (conv_buf, h_last)
+    return shard(out, "batch", "seq", "embed"), (conv_buf, h_last)

@@ -35,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.moe import moe_defs, moe_ffn
 from repro_torch.models.params import ParamDef, cast_params
@@ -121,13 +122,14 @@ class TransformerBlock(nn.Module):
         """(output, load-balancing loss)."""
         hn = L.norm(h, lp["ln1"], self.cfg.norm)
         attn = L.self_attention(hn, lp["attn"], self.cfg, positions=positions)
-        return self._ffn(h, lp, attn, hn)
+        h, aux = self._ffn(h, lp, attn, hn)
+        return shard(h, "batch", "seq", "embed"), aux
 
     def prefill(self, h: torch.Tensor, lp: dict, positions: torch.Tensor):
         hn = L.norm(h, lp["ln1"], self.cfg.norm)
         attn, kv = L.self_attention_with_cache(
             hn, lp["attn"], self.cfg, positions=positions)
-        return self._ffn(h, lp, attn, hn)[0], kv
+        return shard(self._ffn(h, lp, attn, hn)[0], "batch", "seq", "embed"), kv
 
     def decode(self, h: torch.Tensor, lp: dict, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: int, rope_pos: int | None = None):

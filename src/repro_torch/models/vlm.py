@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import cast_params
 from repro_torch.models.transformer import TransformerLM
@@ -46,6 +47,7 @@ class VLM(TransformerLM):
         P = vision.shape[1]
         tok_x = L.embed_tokens(tokens, params["tok"], cfg)
         x = torch.cat([vision.to(tok_x.dtype), tok_x], dim=1)
+        x = shard(x, "batch", "seq", "embed")
         positions = batch.get("positions")
         if positions is None:
             positions = mrope_positions(P, T_text, B, tokens.device)

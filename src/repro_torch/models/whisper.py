@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef, cast_params
 from repro_torch.models.transformer import checkpointed, layer_params, stack_defs
@@ -69,11 +70,13 @@ class WhisperLM(nn.Module):
         B, F, d = audio_embeds.shape
         x = audio_embeds.to(cfg.compute_dtype)
         x = x + L.sinusoidal_embedding(F, d, x.device).to(x.dtype)[None]
+        x = shard(x, "batch", "seq", "embed")
 
         def body(h, lp):
             hn = L.norm(h, lp["ln1"], cfg.norm)
             h = h + L.self_attention(hn, lp["attn"], cfg, positions=None, causal=False)
-            return h + L.mlp(L.norm(h, lp["ln2"], cfg.norm), lp["ffn"], cfg)
+            h = h + L.mlp(L.norm(h, lp["ln2"], cfg.norm), lp["ffn"], cfg)
+            return shard(h, "batch", "seq", "embed")
 
         if remat and torch.is_grad_enabled():
             body = checkpointed(body)
@@ -85,14 +88,15 @@ class WhisperLM(nn.Module):
     def _embed_dec(self, params, tokens, pos0=0):
         cfg = self.cfg
         T = tokens.shape[1]
-        x = params["tok"]["embed"].to(cfg.compute_dtype)[tokens]
+        x = L.lookup(params["tok"]["embed"].to(cfg.compute_dtype), tokens)
         table = params["dec_pos"].to(x.dtype)
         # the reference's dynamic_slice clamps the start so the slice fits
         start = min(max(int(pos0), 0), table.shape[0] - T)
-        return x + table[start:start + T][None]
+        return shard(x + table[start:start + T][None], "batch", "seq", "embed")
 
     def _logits(self, params, h):
-        return torch.matmul(h, params["tok"]["embed"].to(h.dtype).T)
+        logits = torch.matmul(h, params["tok"]["embed"].to(h.dtype).T)
+        return shard(logits, "batch", "seq", "vocab")
 
     def _decode_stack(self, params, x, enc_out, mode, cache=None, pos=None):
         cfg = self.cfg
@@ -122,6 +126,7 @@ class WhisperLM(nn.Module):
             xk, xv = L.encoder_kv(lp["xattn"], cfg, enc_out)
             h = h + L.cross_attention(hc, lp["xattn"], cfg, xk, xv)
             h = h + L.mlp(L.norm(h, lp["ln2"], cfg.norm), lp["ffn"], cfg)
+            h = shard(h, "batch", "seq", "embed")
             if mode == "train":
                 return h
             return h, (ck, cv, xk, xv)

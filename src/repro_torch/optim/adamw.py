@@ -66,6 +66,16 @@ class AdamW:
             "step": torch.zeros((), dtype=torch.int32, device=device),
         }
 
+    def init_abstract(self, params: Any) -> dict:
+        """The state's shapes as meta tensors (fp32 ``m`` and ``v``, an
+        int32 ``step``): no storage."""
+        like = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+        return {
+            "m": tree_map(like, params),
+            "v": tree_map(like, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta"),
+        }
+
     def update(self, grads: Any, state: dict, params: Any):
         """(new params, new state, global grad norm); nothing in place."""
         cfg = self.cfg
