@@ -80,8 +80,24 @@ the kernels' launch counts set to 0 just before and read just after:
    Beside each cell's measured step and peak memory stand the graph
    walker's FLOPs, bytes and peak for the same cell traced on a fake
    1 x 1 group on the host, and the fp32 roofline terms. The host also
-   traces production cells on a fake group of 256 (DIST_DRYRUN), started
-   at the beginning of the run so that they overlap the other phases.
+   runs, on its own PyTorch (printed first), started at the beginning of
+   the run so that they overlap the other phases: deepseek-7b's
+   production train and decode cells at full depth on a fake group of
+   256 (DIST_DRYRUN), which must read a useful ratio of at least 0.75
+   and a peak of at most 8.5 GiB; the cells that torch 2.11's DTensor
+   once failed or replicated, the MoE train cell and the two long decode
+   cells, cut to one layer, on the 16 x 16 mesh and (deepseek-7b's train
+   cell) the 2 x 16 x 16 one
+   (``repro_torch.launch.dist_cells``), whose product FLOPs and link
+   bytes must be within 1 % of those torch 2.13 traced
+   (``dist_cells.json``) and their HBM bytes and peak within 10 %; and
+   the families' sharded gradients against the unsharded ones on 4 gloo
+   ranks (``tests/test_torch_distributed_families.py``'s worker and
+   cases, within 1e-4 relative L2), and the decode step's logits and
+   caches likewise at batch 1, which does not split over the data axis,
+   and 4 (``tests/test_torch_dist_decode.py``, within 1e-5). The
+   report's ``dist`` entry holds the torch version, each cut cell's
+   counts beside 2.13's, and each check's worst case.
 
 Then it holds each kernel against its plain PyTorch version (every
 instantiation at every ring depth at ragged shapes — for attention at
@@ -222,11 +238,29 @@ TRAIN_STEPS, TRAIN_RESUME_STEPS = 12, 14
 #: the largest value of each tensor compared)
 DIST_STEPS = 3
 DIST_REL = 1e-6
-#: production cells the dist phase traces on the host, on a fake group
-#: of 256 (the single 16 x 16 mesh), each in its own process: the two
-#: that the card host's PyTorch traces (its older DTensor refuses some
-#: other families' reshapes; PERF.md §6)
+#: production cells the dist phase traces on the host at full depth, on
+#: a fake group of 256 (the single 16 x 16 mesh), each in its own
+#: process, and what each must read (deepseek-7b's train cell read a
+#: useful ratio of 0.79 and its decode cell a peak of 7.75 GiB on torch
+#: 2.13; torch 2.11's DTensor, before the products were pinned, 0.050
+#: and 968 GiB); beside them ``repro_torch.launch.dist_cells`` traces the
+#: cells cut to one layer (DIST_CUT_JOBS at a time) and holds their
+#: counts to 2.13's
 DIST_DRYRUN = (("deepseek-7b", "train_4k"), ("deepseek-7b", "decode_32k"))
+DIST_MIN_USEFUL = {"train_4k": 0.75}
+DIST_MAX_PEAK_GB = {"decode_32k": 8.5}
+DIST_CUT_JOBS = 2
+#: the families' sharded gradients against the unsharded ones on 4 gloo
+#: ranks of the host's CPU: tests/test_torch_distributed_families.py's
+#: worker and cases, and its limits
+DIST_GRAD_CHECK = ROOT / "tests" / "test_torch_distributed_families.py"
+DIST_GRAD_REL = 1e-4
+#: the sharded decode step's logits and caches against the unsharded
+#: ones, batch 1 (contracted over the FSDP dim) and 4, on 4 gloo ranks:
+#: tests/test_torch_dist_decode.py's worker and cases, and its limit
+DIST_DECODE_CHECK = ROOT / "tests" / "test_torch_dist_decode.py"
+DIST_DECODE_REL = 1e-5
+DIST_LOSS_RTOL = 1e-5
 #: the dist phase's cells traced on a fake 1 x 1 group on the host: the
 #: walker's terms for the steps the card runs (fp32 roofline)
 DIST_TRACE = """
@@ -2129,44 +2163,118 @@ def profile_train(dev, point: dict, steps: int = 3) -> dict:
 
 
 def start_dist_traces() -> list:
-    """Start the dist phase's host traces, each a process on the CPU (no
+    """Start the dist phase's host work, each a process on the CPU (no
     card): the production cells of DIST_DRYRUN through ``python -m
-    repro_torch.launch.dryrun``, and the phase's own cells on a fake 1 x 1
-    group. :func:`run_dist` collects them."""
+    repro_torch.launch.dryrun``, the cut cells through ``python -m
+    repro_torch.launch.dist_cells``, the families' gradient check on 4
+    gloo ranks, and the phase's own cells on a fake 1 x 1 group.
+    :func:`run_dist` collects them."""
     import atexit
+    import importlib.util
+    import socket
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     out_dir = ROOT / "build" / "dryrun_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+
+    def start(tag, path, args):
+        # each in a process group of its own (with its children), at the
+        # lowest priority; :func:`hold_dist_traces` stops and resumes them.
+        # A report left by an earlier run must not stand for this one's.
+        if path is not None:
+            path.unlink(missing_ok=True)
+        return (tag, path, subprocess.Popen(
+            [sys.executable, *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True,
+            preexec_fn=lambda: os.nice(19)))
+
     cells = [("train", TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ),
              ("prefill", None, TRAIN_BATCH, TRAIN_SEQ)]
-    procs = [("cells", None, subprocess.Popen(
-        [sys.executable, "-c", DIST_TRACE % repr(cells)], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))]
+    procs = [start("cells", None, ["-c", DIST_TRACE % repr(cells)])]
     for arch, shape in DIST_DRYRUN:
-        procs.append(((arch, shape), out_dir / f"{arch}_{shape}_single.json", subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--shape", shape, "--mesh", "single", "--out", str(out_dir)],
-            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        procs.append(start((arch, shape), out_dir / f"{arch}_{shape}_single.json",
+                           ["-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                            shape, "--mesh", "single", "--out", str(out_dir)]))
+    procs.append(start("cut", out_dir / "dist_cells.json",
+                       ["-m", "repro_torch.launch.dist_cells", "--jobs", str(DIST_CUT_JOBS),
+                        "--report", str(out_dir / "dist_cells.json")]))
+    def load(tag, path):
+        spec = importlib.util.spec_from_file_location(tag, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    grads, decode = load("families_check", DIST_GRAD_CHECK), load("decode_check",
+                                                                  DIST_DECODE_CHECK)
+    with socket.socket() as a, socket.socket() as b:
+        a.bind(("localhost", 0))
+        b.bind(("localhost", 0))
+        ports = a.getsockname()[1], b.getsockname()[1]
+    for (tag, check, extra), port in zip(
+            (("grads", grads, []), ("decode", decode, [str(decode.T)])), ports):
+        script = out_dir / f"dist_{tag}.py"
+        script.write_text(check.WORKER)
+        procs.append(start((tag, len(check.CASES)), out_dir / f"dist_{tag}.json",
+                           [str(script), json.dumps(check.CASES), *extra, str(port),
+                            str(out_dir / f"dist_{tag}.json")]))
     # a run that fails before collecting them leaves none behind
-    atexit.register(lambda: [proc.kill() for _, _, proc in procs if proc.poll() is None])
+    atexit.register(stop_dist_traces, procs)
     return procs
 
 
-def finish_dist_traces(procs) -> tuple[dict, list]:
-    """Wait for :func:`start_dist_traces`' processes; fail on any fault."""
-    cells, dryrun = None, []
+def stop_dist_traces(procs) -> None:
+    """Kill what is left of :func:`start_dist_traces`' process groups."""
+    import signal
+
+    for _, _, proc in procs:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def hold_dist_traces(procs, hold: bool) -> None:
+    """Stop (``hold``) or resume :func:`start_dist_traces`' processes and
+    their children: the card's host-timed phases must read as they do
+    alone (a host-bound decode step slows beside eight trace processes)."""
+    import signal
+
+    for _, _, proc in procs or ():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGSTOP if hold else signal.SIGCONT)
+
+
+def finish_dist_traces(procs) -> tuple[dict, list, dict, dict, dict]:
+    """Wait for :func:`start_dist_traces`' processes; fail on any fault:
+    (the 1 x 1 cells, the production records, the cut cells' report, the
+    gradient check, the decode check)."""
+    cells, dryrun, cut, checks = None, [], None, {}
     for tag, path, proc in procs:
         out, err = proc.communicate(timeout=1000)
+        if tag == "cut":
+            # exit 1: faults, which the report lists; anything else failed
+            if proc.returncode not in (0, 1) or not path.exists():
+                fail(f"dist: the cut cells exited {proc.returncode}: {err[-2000:]}")
+            cut = json.loads(path.read_text())
+            from repro_torch.launch import dist_cells
+            if sorted(cut["traced"]) != sorted(map(dist_cells.name, dist_cells.CELLS)):
+                fail(f"dist: the cut cells' report names {sorted(cut['traced'])}")
+            continue
         if proc.returncode != 0:
             fail(f"dist: the host trace {tag} failed: {err[-2000:]}")
         if tag == "cells":
             cells = json.loads(out.split("DIST_TRACE ", 1)[1])
+        elif tag[0] in ("grads", "decode"):
+            checks[tag[0]] = json.loads(path.read_text())
+            if len(checks[tag[0]]) != tag[1]:
+                fail(f"dist: the {tag[0]} check ran {sorted(checks[tag[0]])} of {tag[1]} "
+                     "cases")
         else:
             rec = json.loads(path.read_text())
             if rec["status"] != "ok":
                 fail(f"dist: the dry run of {tag} is {rec['status']}")
             dryrun.append(rec)
-    return cells, dryrun
+    return cells, dryrun, cut, checks["grads"], checks["decode"]
 
 
 def _on_mesh(tree, layout, mesh):
@@ -2357,7 +2465,7 @@ def run_dist(dev, procs, train_report) -> dict:
         dist.destroy_process_group()
 
     # -- the host traces: the walker's terms beside the measured steps ----
-    cells, dryrun = finish_dist_traces(procs)
+    cells, dryrun, cut, grads, decode = finish_dist_traces(procs)
     for kind in ("train", "prefill"):
         o, c = out[kind], cells[kind]
         r = c["roofline"]
@@ -2380,16 +2488,71 @@ def run_dist(dev, procs, train_report) -> dict:
               f"{c['trace_s']:.1f} s, {c['nodes']} nodes); fp32 roofline compute "
               f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, bound {r['bound']}; "
               f"measured share of the dominant term {o['measured_share']:.3f}")
+    out.update(check_dist_host(dryrun, cut, grads, decode))
+    return out
+
+
+def check_dist_host(dryrun, cut, grads, decode) -> dict:
+    """The dist phase's host traces on this host's PyTorch: the production
+    cells against DIST_MIN_USEFUL and DIST_MAX_PEAK_GB, the cut cells
+    against torch 2.13's counts, the families' gradients and the decode
+    step's logits and caches against the unsharded ones; fail on any
+    fault."""
+    import torch
+
+    out: dict = {}
     out["dryrun"] = [{"arch": r["arch"], "shape": r["shape"], "trace_s": r["trace_s"],
                       "graph_nodes": r["graph_nodes"], "memory": r["memory"],
                       "roofline": r["roofline"]} for r in dryrun]
+    out["torch"] = torch.__version__
+    faults = []
     for r in out["dryrun"]:
         f = r["roofline"]
-        print(f"dist dry run {r['arch']} {r['shape']} (256 GPUs, H100 constants): traced in "
+        print(f"dist dry run {r['arch']} {r['shape']} (256 GPUs, H100 constants, torch "
+              f"{torch.__version__}): traced in "
               f"{r['trace_s']:.1f} s ({r['graph_nodes']} nodes); compute {f['compute_s']:.4g} s, "
               f"memory {f['memory_s']:.4g} s, collective {f['collective_s']:.4g} s, "
               f"bound {f['bound']}, useful {f['useful_ratio']:.3f}, roofline fraction "
               f"{f['roofline_frac']:.3f}; peak {r['memory']['peak_per_device_gb']} GB")
+        low = DIST_MIN_USEFUL.get(r["shape"])
+        if low is not None and f["useful_ratio"] < low:
+            faults.append(f"{r['arch']} {r['shape']} useful {f['useful_ratio']:.3f} < {low}")
+        high = DIST_MAX_PEAK_GB.get(r["shape"])
+        if high is not None and r["memory"]["peak_per_device_gb"] > high:
+            faults.append(f"{r['arch']} {r['shape']} peak "
+                          f"{r['memory']['peak_per_device_gb']} GB > {high}")
+    # -- the cut cells against torch 2.13's counts -------------------------
+    out["cut_cells"] = cut
+    for name, cmp in cut["compared"].items():
+        got = cut["traced"][name]
+        print(f"dist cut cell {name} (1 layer, torch {got['torch']}, traced in "
+              f"{got['trace_s']:.1f} s): " + "; ".join(
+                  f"{k} {c['got']:.6g} against {c['want']:.6g} ({c['rel']:.3%}, limit "
+                  f"{c['limit']:.0%})" for k, c in cmp.items()))
+    faults += [f"cut cell {f}" for f in cut["faults"]]
+    # -- the families' sharded gradients -----------------------------------
+    worst = {case: max(r["rel"].items(), key=lambda kv: kv[1]) for case, r in grads.items()}
+    out["grad_check"] = {"cases": grads, "worst": worst, "limit": DIST_GRAD_REL}
+    case, (leaf, rel) = max(worst.items(), key=lambda kv: kv[1][1])
+    print(f"dist gradients, sharded (2 x 2 gloo ranks, torch {torch.__version__}) against "
+          f"unsharded over {len(grads)} cases: worst relative L2 {rel:.3g} ({case}, {leaf}), "
+          f"limit {DIST_GRAD_REL}; losses within "
+          f"{max(abs(r['loss'] - r['want']) / abs(r['want']) for r in grads.values()):.3g}")
+    for case, r in grads.items():
+        if worst[case][1] > DIST_GRAD_REL:
+            faults.append(f"gradient {case} {worst[case][0]}: {worst[case][1]:.3g}")
+        if abs(r["loss"] - r["want"]) > DIST_LOSS_RTOL * abs(r["want"]):
+            faults.append(f"loss {case}: {r['loss']} against {r['want']}")
+    # -- the sharded decode step ------------------------------------------
+    out["decode_check"] = {"cases": decode, "limit": DIST_DECODE_REL}
+    case = max(decode, key=lambda c: max(decode[c]))
+    print(f"dist decode step, sharded (2 x 2 gloo ranks, torch {torch.__version__}) against "
+          f"unsharded over {len(decode)} cases (batch 1: contracted over the FSDP dim): "
+          f"worst relative L2 {max(decode[case]):.3g} ({case}), limit {DIST_DECODE_REL}")
+    faults += [f"decode {c}: {max(r):.3g}" for c, r in decode.items()
+               if max(r) > DIST_DECODE_REL]
+    if faults:
+        fail("dist: " + "; ".join(faults))
     return out
 
 
@@ -2684,6 +2847,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
     card = card_line()
     print(f"card: {card}")
+    print(f"torch {torch.__version__} (CUDA {torch.version.cuda})")
     # the plain versions' and the yardsticks' products stay in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2700,6 +2864,10 @@ def main(argv=None) -> int:
     libs, report["builds"] = build_all(dev)
     lib = libs["euclid"]
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    # the host-timed paths (Table 3's wall clock, host-bound decode) run
+    # with the dist phase's host traces held
+    hold_dist_traces(dist_procs, True)
 
     # -- 2. the first path: Table 3 at the PARSEC sizes ---------------------
     rows = None
@@ -2772,6 +2940,8 @@ def main(argv=None) -> int:
         recurrent_report = report["recurrent"] = run_recurrent(dev)
         torch.cuda.empty_cache()
         save()
+
+    hold_dist_traces(dist_procs, False)
 
     # -- 4. each kernel against its plain version ---------------------------
     if "check" in only:

@@ -18,7 +18,10 @@ names or ``None``. :func:`placements` turns a spec into DTensor
 placements on a named ``DeviceMesh``; :func:`shard` is the counterpart of
 ``with_sharding_constraint``: inside a rules scope it redistributes a
 DTensor to the resolved placements, and anywhere else it returns its
-argument after one global check.
+argument after one global check. :func:`pinned` runs a region (a
+product, a norm, a lookup) on local shards with every placement stated
+in the same logical axes, so that DTensor's own sharding strategies,
+which differ from one PyTorch version to the next, decide nothing there.
 
 A dim that does not divide its mesh axes (40 heads over 16) is sharded
 unevenly by DTensor, where GSPMD pads it: the port's roofline shows no
@@ -158,7 +161,13 @@ def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     if not isinstance(x, DTensor):
         return x
     mesh = _ACTIVE_MESH if _ACTIVE_MESH is not None else x.device_mesh
-    target = placements(spec_of(axes), mesh)
+    spec = spec_of(axes)
+    if "batch" in axes and not splits_evenly(x.shape[axes.index("batch")], "batch", mesh):
+        # a batch that does not split over its mesh axes stays whole, as
+        # :func:`pinned` keeps it (an uneven split of it would leave the
+        # ops between regions to DTensor's version-dependent rules)
+        spec = P(*(None if a == "batch" else e for a, e in zip(axes, spec)))
+    target = placements(spec, mesh)
     if tuple(x.placements) == target:
         return x
     return x.redistribute(mesh, target)
@@ -214,34 +223,6 @@ def local_range(x, dim: int) -> tuple[int, int]:
     ``dim``."""
     size, off = local_shape_offset(x.shape, x.placements, x.device_mesh)
     return size[dim], off[dim]
-
-
-def unshard_ragged(x, dim: int, n: int | None = None):
-    """``x`` whole along ``dim`` on each mesh dim that shards it into
-    parts of unequal size (of ``n`` units, ``x.shape[dim]`` by default:
-    the heads of a flat heads x head-dim axis about to be split).
-    DTensor can neither split nor merge such a dim; GSPMD would pad it."""
-    from torch.distributed.tensor import Replicate
-
-    n = x.shape[dim] if n is None else n
-    pl = tuple(Replicate() if p.is_shard(dim) and n % x.device_mesh.size(i) else p
-               for i, p in enumerate(x.placements))
-    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
-
-
-def reshape_local(x, shape, placements_):
-    """DTensor ``x`` reshaped to global ``shape`` laid out as
-    ``placements_``, shard by shard (each rank reshapes its own part):
-    for merging dims whose sharded one leads, where DTensor's own view
-    rules (and the backward of a view) would refuse an uneven or
-    partial layout."""
-    from torch.distributed.tensor import DTensor
-
-    mesh = x.device_mesh
-    size, _ = local_shape_offset(tuple(shape), placements_, mesh)
-    return DTensor.from_local(x.to_local().reshape(size), mesh, placements_,
-                              run_check=False, shape=torch.Size(shape),
-                              stride=contiguous_stride(shape))
 
 
 def contiguous_stride(shape) -> tuple[int, ...]:
@@ -315,3 +296,105 @@ def on_local(fn, *args, out_like, grad_placements=None):
         likes = out_like if isinstance(out_like, tuple) else (out_like,) * len(out)
         return tuple(wrap(t, like) for t, like in zip(out, likes))
     return wrap(out, out_like)
+
+
+def _logical_placements(axes, mesh, contract: bool = False) -> tuple:
+    """The placements of a tensor whose dims carry the logical ``axes``
+    under the active rules (``embed`` read as an activation's
+    ``act_embed``; with ``contract``, as the weights' FSDP dim, and
+    ``batch`` whole). A dim that does not divide its mesh axes (40 heads
+    over 16) is split unevenly, where GSPMD would pad it."""
+    sub = {"embed": "embed", "batch": None} if contract else {"embed": "act_embed"}
+    return placements(P(*(resolve(sub.get(a, a)) for a in axes)), mesh)
+
+
+def pinned_range(shape, axes, mesh, dim: int) -> tuple[int, int]:
+    """(size, global offset) of this rank's part of dim ``dim`` of a
+    tensor of ``shape`` that :func:`pinned` lays out by the logical
+    ``axes`` (``dim`` neither ``batch`` nor ``embed``)."""
+    size, off = local_shape_offset(shape, _logical_placements(axes, mesh), mesh)
+    return size[dim], off[dim]
+
+
+def splits_evenly(n: int, axis, mesh) -> bool:
+    """Whether a dim of ``n`` carrying the logical ``axis`` is split over
+    its mesh axes into parts of one size."""
+    entry = resolve(axis)
+    if entry is None:
+        return False
+    names = tuple(mesh.mesh_dim_names)
+    k = 1
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        k *= mesh.size(names.index(a))
+    return n % k == 0
+
+
+def _fsdp_dims(mesh) -> set:
+    """The mesh dims that split the weights' FSDP (``embed``) dim."""
+    entry = resolve("embed") or ()
+    names = tuple(mesh.mesh_dim_names)
+    return {names.index(a) for a in (entry if isinstance(entry, tuple) else (entry,))}
+
+
+def pinned(fn, *args, axes, out_axes, out_shape, out_dtype=None):
+    """``fn`` over local shards with every placement stated in the
+    rules' logical axes, so that no product, view or gradient of the
+    region is left to DTensor's own sharding strategies (which differ
+    from one PyTorch version to the next).
+
+    Each DTensor argument ``i`` is first laid out by ``axes[i]``: one
+    logical axis or ``None`` per dim, where an activation's residual dim
+    is written ``embed``; or ``None`` for a weight taken as its spec laid
+    it out. The batch rows stay split and the weights' FSDP dim is
+    gathered, as GSPMD lays the reference out, unless the batch does not
+    split evenly over its mesh axes (the one row of a long decode over 16
+    data ranks): then the batch is whole on every rank and the region
+    contracts over the FSDP dim instead, weights keeping their shard and
+    activations splitting their ``embed`` dim alike, so that every rank
+    takes its share of each product. ``fn`` gets the local shards and
+    returns the rank's part of a result of global ``out_shape`` laid out
+    by ``out_axes`` (or a tuple of results: then ``out_axes``,
+    ``out_shape`` and ``out_dtype`` are tuples). A mesh dim that splits
+    some argument but no dim of a result is a contraction: that result
+    holds a pending sum over it, so ``fn`` must be linear in what such a
+    mesh dim splits. An argument's gradient keeps its own shards and, on
+    a mesh dim where it is whole while an argument or a result is split,
+    is that pending sum (each rank's share). Other arguments pass as
+    they are.
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    like = next(a for a in args if isinstance(a, DTensor))
+    mesh = like.device_mesh
+    contract = any(isinstance(a, DTensor) and ax is not None and "batch" in ax
+                   and not splits_evenly(a.shape[ax.index("batch")], "batch", mesh)
+                   for a, ax in zip(args, axes))
+    fsdp = _fsdp_dims(mesh)
+    many = not isinstance(out_shape[0], int)
+    outs = list(zip(out_axes, out_shape, out_dtype)) if many else \
+        [(out_axes, out_shape, out_dtype)]
+    laid, split = [], set()
+    for a, ax in zip(args, axes):
+        if not isinstance(a, DTensor):
+            laid.append((a, None))
+            continue
+        if ax is not None:
+            pl = _logical_placements(ax, mesh, contract)
+        elif contract:
+            pl = tuple(a.placements)
+        else:
+            pl = tuple(Replicate() if i in fsdp else p for i, p in enumerate(a.placements))
+        split.update(i for i, p in enumerate(pl) if p.is_shard())
+        laid.append((a if tuple(a.placements) == pl else a.redistribute(mesh, pl), pl))
+    likes, made = [], set(split)
+    for ax, shape, dtype in outs:
+        pl = _logical_placements(ax, mesh, contract)
+        made.update(i for i, p in enumerate(pl) if p.is_shard())
+        pl = tuple(Partial() if i in split and not p.is_shard() else p
+                   for i, p in enumerate(pl))
+        likes.append(template(like, shape, dtype or like.dtype, pl))
+    grads = tuple(None if pl is None else tuple(
+        Partial() if i in made and not p.is_shard() else p for i, p in enumerate(pl))
+        for _, pl in laid)
+    return on_local(fn, *(a for a, _ in laid),
+                    out_like=tuple(likes) if many else likes[0], grad_placements=grads)

@@ -60,12 +60,16 @@ def flash_attention_torch(
     q_chunk: int = 256,
     k_chunk: int = 512,
     scores_f32: bool = True,
+    recompute: bool = False,
 ) -> torch.Tensor:
     """Online-softmax attention over ``q_chunk`` x ``k_chunk`` blocks.
 
     Python loops take the place of the reference's two ``lax.scan``\\ s;
     the masks (ragged kv tail, causal with ``q_offset``, sliding window)
     and the fp32 running max, sum and accumulator are the reference's.
+    With ``recompute`` and grad mode on, each query chunk and each block
+    in it is checkpointed, as the reference checkpoints both scan bodies:
+    the backward recomputes the score blocks instead of keeping them.
     """
     B, Tq, H, Dh = q.shape
     _, Tk, Hk, _ = k.shape
@@ -92,33 +96,43 @@ def flash_attention_torch(
     q_ids = torch.arange(qc, device=dev)
     k_ids = torch.arange(kc, device=dev)
 
-    outs = []
-    for iq in range(n_q):
-        qcur = qb[iq].to(score_dtype)
+    def kv_step(qcur, m, l, acc, kblk, vblk, q_pos, ik):
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qcur,
+                         kblk.to(score_dtype)).to(torch.float32) * scale
+        k_pos = ik * kc + k_ids[None, :]
+        mask = k_pos < Tk
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        if window is not None:
+            mask = mask & (k_pos > q_pos - window)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(vblk.dtype), vblk).to(torch.float32)
+        return m_new, l, acc
+
+    def q_step(qcur, iq):
         m = torch.full((B, Hk, G, qc), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, Hk, G, qc), dtype=torch.float32, device=dev)
         acc = torch.zeros((B, Hk, G, qc, Dh), dtype=torch.float32, device=dev)
         q_pos = q_offset + iq * qc + q_ids[:, None]
         for ik in range(n_k):
-            kblk, vblk = kb[ik], vb[ik]
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qcur,
-                             kblk.to(score_dtype)).to(torch.float32) * scale
-            k_pos = ik * kc + k_ids[None, :]
-            mask = k_pos < Tk
-            if causal:
-                mask = mask & (q_pos >= k_pos)
-            if window is not None:
-                mask = mask & (k_pos > q_pos - window)
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", p.to(vblk.dtype), vblk).to(torch.float32)
-            m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
-        outs.append(out.to(orig_dtype))
+            m, l, acc = step(kv_step, qcur, m, l, acc, kb[ik], vb[ik], q_pos, ik)
+        return (acc / torch.clamp(l, min=1e-30)[..., None]).to(orig_dtype)
+
+    if recompute and torch.is_grad_enabled():
+        from torch.utils.checkpoint import checkpoint
+
+        def step(fn, *args):
+            return checkpoint(fn, *args, use_reentrant=False)
+    else:
+        def step(fn, *args):
+            return fn(*args)
+
+    outs = [step(q_step, qb[iq].to(score_dtype), iq) for iq in range(n_q)]
     # (n_q, B, Hk, G, qc, Dh) -> (B, Tq, H, Dh)
     out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Tq_p, H, Dh)
     return out[:, :Tq].to(orig_dtype)

@@ -79,6 +79,10 @@ def trace(cell: Cell):
             donated.update(range(i, i + count))
         i += count
     gm = make_fx(spmd_fn(cell), tracing_mode="fake")(*args)
+    # nodes no result depends on (some DTensor versions trace the global
+    # tensors of their shape propagation) are no part of the program; the
+    # walkers read the graph, so the module's code is not regenerated
+    gm.graph.eliminate_dead_code()
     return gm, donated
 
 
@@ -128,6 +132,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_dir: str | None = N
             "temp_bytes": mem["temp_bytes"],
             "alias_bytes": mem["alias_bytes"],
             "peak_per_device_gb": round(mem["peak_bytes"] / 2**30, 3),
+            "peak_bytes": mem["peak_bytes"],
         },
         "cost": cost,
         "collectives": {

@@ -10,16 +10,27 @@ check and the identity. Its u16 bit views around bf16 caches (an
 XLA:CPU workaround) drop out: the decode cache is updated in place, slot
 by slot, instead of rebuilt.
 
-**Sharded runs.** Under DTensor the products, the elementwise ops and
-the cross-entropy go through DTensor's sharding propagation; the hand
-kernels see only local shards (``data_ptr()`` of a DTensor is not its
-shard). ``rms_norm`` runs on each rank's rows (``act_embed`` is
-replicated, so each row is whole there) and attention on each rank's
-batch rows and heads: where the rules shard the query heads over
-``model`` and replicate the KV heads (the train and prefill rules when
-the KV heads do not divide the axis), each rank takes the KV heads its
-own query heads read, so the local GQA map stays right on every rank.
-The token embedding is ``embedding`` on a DTensor (:func:`lookup`).
+**Sharded runs.** Under DTensor every product runs on local shards with
+its placements stated in the rules' logical axes
+(:func:`~repro_torch.distributed.sharding.pinned`): the projections, the
+MLP, the logits, the token lookup, ``layer_norm`` and the decode cache's
+slot write. DTensor's own strategies, which differ from one PyTorch
+version to the next (2.11 gathered whole batches and caches where 2.13
+did not), choose nothing there: a weight's FSDP dim is gathered and its
+``heads`` / ``ffn`` / ``vocab`` dim stays split, as GSPMD lays the
+reference out, the activations keep their batch rows, and a dim that
+does not divide its mesh axis is split unevenly. Where the batch does
+not split over its mesh axes (a decode of one sequence) the products
+contract over the FSDP dim instead, so a region holds no nonlinearity
+after a product whose contraction that dim splits. What is left to
+DTensor is elementwise and views over whole dims. The hand kernels see
+only local shards (``data_ptr()`` of a DTensor is not its shard).
+``rms_norm`` runs on each rank's rows (``act_embed`` is replicated, so
+each row is whole there) and attention on each rank's batch rows and
+heads: where the rules shard the query heads over ``model`` and
+replicate the KV heads (the train and prefill rules when the KV heads do
+not divide the axis), each rank takes the KV heads its own query heads
+read, so the local GQA map stays right on every rank.
 
 **What runs where.** In the reference, the step-programs are jitted: the
 layers see tracers there, never route through a kernel-plane handle, and
@@ -114,6 +125,10 @@ def plane_decode_chunk(cfg: ModelConfig) -> int:
     return cfg.decode_k_chunk
 
 
+#: the families whose blocks the reference always checkpoints in full
+_FULL_REMAT_FAMILIES = ("hybrid", "encdec")
+
+
 def _needs_grad(*tensors: torch.Tensor) -> bool:
     """Whether autograd records a call on ``tensors``."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
@@ -145,6 +160,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    if shlib.is_dtensor(x):
+        # each rank's whole rows
+        axes = ("batch",) + ("seq",) * (x.dim() - 2) + (None,)
+        return shlib.pinned(lambda xl, wl: layer_norm(xl, wl, eps), x, scale,
+                            axes=(axes, None), out_axes=axes,
+                            out_shape=tuple(x.shape), out_dtype=x.dtype)
     x32 = x.to(torch.float32)
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
@@ -229,28 +250,48 @@ def attention_defs(cfg: ModelConfig, cross: bool = False) -> dict:
     return defs
 
 
-def _merged(w: torch.Tensor, keep: int) -> torch.Tensor:
-    """``w`` with its dims from ``keep`` on merged into one (as a DTensor,
-    rank by rank: the merged dims' leading one carries the sharding)."""
-    shape = (*w.shape[:keep], math.prod(w.shape[keep:]))
-    if not shlib.is_dtensor(w):
-        return w.reshape(shape)
-    pl = tuple(type(p)(min(p.dim, keep)) if p.is_shard() else p for p in w.placements)
-    return shlib.reshape_local(w, shape, pl)
-
-
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (B, T, d) @ w (d, *heads) -> (B, T, *heads), one matmul."""
-    out = torch.matmul(x, _merged(w.to(x.dtype), 1))
-    if shlib.is_dtensor(out):
-        out = shlib.unshard_ragged(out, out.dim() - 1, w.shape[1])
+def _proj(x: torch.Tensor, w: torch.Tensor, axis: str = "heads") -> torch.Tensor:
+    """x (B, T, d) @ w (d, *heads) -> (B, T, *heads), one matmul. Under
+    DTensor, on local shards: each rank's batch rows against the weight's
+    ``axis`` columns (:func:`_proj_flat` where the heads do not split
+    evenly)."""
+    if shlib.is_dtensor(x):
+        if not shlib.splits_evenly(w.shape[1], axis, x.device_mesh):
+            return _proj_flat(x, w, axis)
+        return shlib.pinned(
+            lambda xl, wl: _proj(xl, wl), x, w,
+            axes=(("batch", "seq", "embed"), None),
+            out_axes=("batch", "seq", axis, None),
+            out_shape=(*x.shape[:-1], *w.shape[1:]), out_dtype=x.dtype)
+    out = torch.matmul(x, w.to(x.dtype).reshape(w.shape[0], -1))
     return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _proj_flat(x: torch.Tensor, w: torch.Tensor, axis: str) -> torch.Tensor:
+    """:func:`_proj` for heads that do not split evenly over their mesh
+    axis (40 query heads over 16, or KV heads the rules keep whole): each
+    rank computes an even share of the flat heads x head-dim columns over
+    the ``heads`` mesh axis; the result is gathered and each rank keeps
+    its ``axis`` heads (all of them where ``axis`` is kept whole)."""
+    flat = (*x.shape[:-1], math.prod(w.shape[1:]))
+    shape = (*x.shape[:-1], *w.shape[1:])
+    out_axes = ("batch", "seq", axis, None)
+    n, lo = shlib.pinned_range(flat, ("batch", "seq", "heads"), x.device_mesh, 2)
+    h, h0 = shlib.pinned_range(shape, out_axes, x.device_mesh, 2)
+    cols = shlib.pinned(
+        lambda xl, wl: torch.matmul(xl, wl.to(xl.dtype).reshape(wl.shape[0], -1)[:, lo:lo + n]),
+        x, w, axes=(("batch", "seq", "embed"), ("embed", None, None)),
+        out_axes=("batch", "seq", "heads"), out_shape=flat, out_dtype=x.dtype)
+    return shlib.pinned(
+        lambda cl: cl.reshape(*cl.shape[:-1], *w.shape[1:])[:, :, h0:h0 + h], cols,
+        axes=(("batch", "seq", None),), out_axes=out_axes, out_shape=shape,
+        out_dtype=x.dtype)
 
 
 def qkv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig):
     q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+    k = _proj(x, p["wk"], "kv")
+    v = _proj(x, p["wv"], "kv")
     if cfg.qkv_bias:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -263,19 +304,40 @@ def qkv_proj(x: torch.Tensor, p: dict, cfg: ModelConfig):
 
 def attn_out(o: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     B, T, H, Dh = o.shape
-    w = p["wo"].to(o.dtype)
     if shlib.is_dtensor(o):
-        # merged rank by rank: the backward of a view would split the
-        # merged dim's gradient over ragged heads, which DTensor refuses
-        o = _merged(shlib.unshard_ragged(shlib.settle(o), 2), 2)
-    else:
-        o = o.reshape(B, T, H * Dh)
-    w = w.reshape(H * Dh, w.shape[-1]) if not shlib.is_dtensor(w) else \
-        shlib.reshape_local(w, (H * Dh, w.shape[-1]), tuple(
-            type(p)(0 if p.dim < 2 else 1) if p.is_shard() else p
-            for p in w.placements))
-    out = torch.matmul(o, w)
+        if shlib.splits_evenly(H, "heads", o.device_mesh):
+            # each rank's batch rows and heads against the same heads'
+            # rows of wo: a pending sum over the heads' mesh axis
+            out = shlib.pinned(
+                lambda ol, wl: attn_out(ol, {"wo": wl}, cfg), o, p["wo"],
+                axes=(("batch", "seq", "heads", None), None),
+                out_axes=("batch", "seq", "embed"), out_shape=(B, T, p["wo"].shape[-1]),
+                out_dtype=o.dtype)
+        else:
+            out = _attn_out_flat(o, p["wo"])
+        return shard(out, "batch", "seq", "embed")
+    w = p["wo"].to(o.dtype)
+    out = torch.matmul(o.reshape(B, T, H * Dh), w.reshape(H * Dh, w.shape[-1]))
     return shard(out, "batch", "seq", "embed")
+
+
+def _attn_out_flat(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """:func:`attn_out` for heads that do not split evenly over their mesh
+    axis: the heads gathered, each rank takes an even share of the flat
+    heads x head-dim rows (over the ``heads`` mesh axis) and of ``wo``'s:
+    a pending sum over that axis."""
+    B, T, H, Dh = o.shape
+    flat = (B, T, H * Dh)
+    n, lo = shlib.pinned_range(flat, ("batch", "seq", "heads"), o.device_mesh, 2)
+    cols = shlib.pinned(
+        lambda ol: ol.reshape(*ol.shape[:2], -1)[..., lo:lo + n], o,
+        axes=(("batch", "seq", None, None),), out_axes=("batch", "seq", "heads"),
+        out_shape=flat, out_dtype=o.dtype)
+    return shlib.pinned(
+        lambda cl, wl: torch.matmul(cl, wl.to(cl.dtype).reshape(H * Dh, -1)[lo:lo + n]),
+        cols, wo, axes=(("batch", "seq", "heads"), (None, None, "embed")),
+        out_axes=("batch", "seq", "embed"), out_shape=(B, T, wo.shape[-1]),
+        out_dtype=o.dtype)
 
 
 def _rotate(q, k, positions, cfg: ModelConfig):
@@ -305,7 +367,12 @@ def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
         return flash_attention_cuda(q, k, v, point, causal=causal)
     return flash_attention_torch(
         q, k, v, causal=causal, q_offset=q_offset, window=cfg.window,
-        q_chunk=qc, k_chunk=kc, scores_f32=cfg.attn_scores_f32)
+        q_chunk=qc, k_chunk=kc, scores_f32=cfg.attn_scores_f32,
+        # inside a block checkpointed in full the attention checkpoints its
+        # own chunks too, as the reference's does; under remat "dots" the
+        # port recomputes every product of the block instead
+        # (``repro_torch/models/transformer.py``)
+        recompute=cfg.remat == "full" or cfg.family in _FULL_REMAT_FAMILIES)
 
 
 def _kv_pick(q, k):
@@ -441,6 +508,16 @@ def self_attention_with_cache(
     return attn_out(o, p, cfg), (k, v)
 
 
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``cache[:, slot] = new[:, 0]``, in place. Under DTensor each rank
+    writes its own shard, the new entry laid out as the cache is: an
+    in-place write through DTensor's own rules may gather the cache."""
+    if shlib.is_dtensor(cache):
+        new = new.redistribute(cache.device_mesh, cache.placements)
+        cache, new = cache.to_local(), new.to_local()
+    cache[:, slot] = new[:, 0].to(cache.dtype)
+
+
 def decode_self_attention(
     x: torch.Tensor,                 # (B, 1, d)
     p: dict,
@@ -478,8 +555,8 @@ def decode_self_attention(
         # W = min(max_len, window)) takes every token past W at slot W - 1
         slot = min(pos, S - 1)
         S_eff = S
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    _write_slot(cache_k, k, slot)
+    _write_slot(cache_v, v, slot)
     cache_k = shard(cache_k, "batch", "kv_seq", "kv", "kv_dh")
     cache_v = shard(cache_v, "batch", "kv_seq", "kv", "kv_dh")
     length = min(pos + 1, S_eff)
@@ -522,7 +599,7 @@ def cross_attention(
 
 
 def encoder_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
-    return _proj(enc_out, p["wk"]), _proj(enc_out, p["wv"])
+    return _proj(enc_out, p["wk"], "kv"), _proj(enc_out, p["wv"], "kv")
 
 
 # ------------------------------------------------------------------- mlp
@@ -544,17 +621,36 @@ def mlp_defs(cfg: ModelConfig, d_ff: int | None = None) -> dict:
 
 
 def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    up = ("w_gate", "w_up") if cfg.act == "swiglu" else ("w_up",)
+    if shlib.is_dtensor(x):
+        # each rank's batch rows through its ffn columns (two regions: the
+        # up products may be pending sums over the FSDP dim), the down
+        # product a pending sum over the ffn's mesh axis
+        rows, cols = ("batch", "seq", "embed"), ("batch", "seq", "ffn")
+        hid = (*x.shape[:-1], p["w_up"].shape[-1])
+        gu = shlib.pinned(
+            lambda xl, *ws: tuple(torch.matmul(xl, w.to(xl.dtype)) for w in ws),
+            x, *(p[n] for n in up), axes=(rows, *(None for _ in up)),
+            out_axes=(cols,) * len(up), out_shape=(hid,) * len(up),
+            out_dtype=(x.dtype,) * len(up))
+        out = shlib.pinned(lambda wd, *gl: _mlp_down(gl, wd, cfg), p["w_down"], *gu,
+                           axes=(None, *(cols for _ in up)), out_axes=rows,
+                           out_shape=tuple(x.shape), out_dtype=x.dtype)
+        return shard(out, "batch", "seq", "embed")
+    gu = tuple(torch.matmul(x, p[n].to(x.dtype)) for n in up)
+    return shard(_mlp_down(gu, p["w_down"], cfg), "batch", "seq", "embed")
+
+
+def _mlp_down(gu, w_down, cfg: ModelConfig):
+    """The MLP's activation of its up products ``gu`` and its down
+    product."""
     if cfg.act == "swiglu":
-        g = torch.matmul(x, p["w_gate"].to(x.dtype))
-        u = torch.matmul(x, p["w_up"].to(x.dtype))
-        h = torch.nn.functional.silu(g) * u
+        h = torch.nn.functional.silu(gu[0]) * gu[1]
     else:
-        h = torch.matmul(x, p["w_up"].to(x.dtype))
-        h = (torch.nn.functional.gelu(h, approximate="tanh") if cfg.act == "gelu"
-             else torch.square(torch.relu(h)))
+        h = (torch.nn.functional.gelu(gu[0], approximate="tanh") if cfg.act == "gelu"
+             else torch.square(torch.relu(gu[0])))
     h = shard(h, "batch", "seq", "ffn")
-    out = torch.matmul(h, p["w_down"].to(x.dtype))
-    return shard(out, "batch", "seq", "embed")
+    return torch.matmul(h, w_down.to(h.dtype))
 
 
 # ------------------------------------------------------------- embeddings
@@ -567,51 +663,50 @@ def embedding_defs(cfg: ModelConfig) -> dict:
 
 
 def lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``. On a DTensor the table's columns are gathered
-    first (the FSDP gather of its ``embed`` dim); where its rows (vocab)
-    are split across ranks the gather is ``embedding`` (DTensor has no
-    strategy for indexing a sharded table), else each rank indexes its
-    whole table with its own tokens, as one card does."""
+    """``table[tokens]``. Under DTensor, on local shards: each rank looks
+    its batch rows' tokens up in its rows of the table (its ``embed``
+    gathered), a token outside them reading zeros, so that the result is
+    a pending sum over the mesh axes that split the vocabulary."""
     if not shlib.is_dtensor(table):
         return table[tokens]
-    from torch.distributed.tensor import Replicate
+    axes = (("vocab", "embed"), ("batch", "seq"))
+    v, lo = shlib.pinned_range(table.shape, axes[0], table.device_mesh, 0)
 
-    mesh = table.device_mesh
-    split = [i for i, p in enumerate(table.placements)
-             if p.is_shard(0) and mesh.size(i) > 1]
-    rows = tuple(p if i in split else Replicate() for i, p in enumerate(table.placements))
-    table = table.redistribute(mesh, rows)
-    if split:
-        return torch.nn.functional.embedding(tokens, table)
-    tokens = shlib.settle(tokens)
-    out = shlib.template(tokens, (*tokens.shape, table.shape[1]), table.dtype)
-    return shlib.on_local(lambda t, ix: t[ix], table, tokens, out_like=out,
-                          grad_placements=(shlib.partial_over(tokens), None))
+    def rows(tl, ix):
+        if v == table.shape[0]:
+            return tl[ix]
+        local = ix.long() - lo
+        inside = ((local >= 0) & (local < v)).unsqueeze(-1)
+        return torch.where(inside, tl[local.clamp(0, v - 1)], 0)
 
-
-class _SettledGrad(torch.autograd.Function):
-    """The identity, whose gradient has any pending sum carried out: a
-    gather from a vocabulary-sharded table leaves a masked partial sum,
-    and DTensor cannot turn a plain pending sum (as ``layer_norm``'s
-    backward leaves) into that masked one."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return shlib.settle(grad)
+    return shlib.pinned(rows, table, tokens, axes=axes,
+                        out_axes=("batch", "seq", "embed"),
+                        out_shape=(*tokens.shape, table.shape[1]), out_dtype=table.dtype)
 
 
 def embed_tokens(tokens: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
-    x = shard(lookup(p["embed"].to(cfg.compute_dtype), tokens), "batch", "seq", "embed")
-    return _SettledGrad.apply(x) if shlib.is_dtensor(x) else x
+    return shard(lookup(p["embed"].to(cfg.compute_dtype), tokens), "batch", "seq", "embed")
 
 
 def logits_out(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
+    if shlib.is_dtensor(x):
+        # each rank's batch rows against its vocabulary columns, then the
+        # cap on the settled product
+        vocab = ("batch", "seq", "vocab")
+        shape = (*x.shape[:-1], p["unembed"].shape[-1])
+        logits = shlib.pinned(
+            lambda xl, wl: torch.matmul(xl, wl.to(xl.dtype)), x, p["unembed"],
+            axes=(("batch", "seq", "embed"), ("embed", "vocab")),
+            out_axes=vocab, out_shape=shape, out_dtype=x.dtype)
+        if not cfg.logit_softcap:
+            return logits
+        return shlib.pinned(lambda ll: _softcap(ll, cfg), logits, axes=(vocab,),
+                            out_axes=vocab, out_shape=shape, out_dtype=x.dtype)
     logits = torch.matmul(x, p["unembed"].to(x.dtype))
-    logits = shard(logits, "batch", "seq", "vocab")
+    return _softcap(shard(logits, "batch", "seq", "vocab"), cfg)
+
+
+def _softcap(logits, cfg: ModelConfig):
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)

@@ -16,8 +16,9 @@ groups), the dispatch, expert products and combine on each rank's
 groups and its own experts (``expert`` -> ``model``; the weights'
 FSDP dim is gathered first), whose combined output is a partial sum over
 the model axis that the closing ``shard`` reduces. The load-balancing
-loss is reduced from the routing's outputs by DTensor. The router and the expert products are ``torch.einsum`` in full fp32: the
-reference computes them outside any Pallas kernel. Each of the ``top_k``
+loss takes each rank's sums over its groups, reduced over the batch
+axes. The router and the expert products are ``torch.einsum`` in full
+fp32: the reference computes them outside any Pallas kernel. Each of the ``top_k``
 slices runs the expert products over all ``E`` experts at capacity
 ``C``, so a step reads every expert's weights ``top_k`` times, prefill
 or decode alike; the port keeps that dispatch, as the reference has it.
@@ -124,19 +125,23 @@ def _moe_sharded(xg, p: dict, cfg: ModelConfig, C: int):
     names = tuple(mesh.mesh_dim_names)
     xg = shlib.settle(xg)
     router = shlib.replicated(p["router"])
-    like_probs = shlib.template(xg, (xg.shape[0], xg.shape[1], E), torch.float32)
     like_k = shlib.template(xg, (xg.shape[0], xg.shape[1], k), torch.float32)
+    # the aux loss's sums over this rank's groups: pending sums over its
+    # batch axes, reduced here
+    like_sum = shlib.template(xg, (E,), torch.float32, shlib.partial_over(xg))
 
     def routing(xl, rl):
         probs, gate_w, gate_idx = route(xl, rl, k)
-        return probs, gate_w, gate_idx, _expert_counts(gate_idx, E)
+        return (probs.sum(dim=(0, 1)), gate_w, gate_idx,
+                _expert_counts(gate_idx, E).sum(dim=(0, 1)))
 
-    probs, gate_w, gate_idx, counts = shlib.on_local(
+    p_sum, gate_w, gate_idx, c_sum = shlib.on_local(
         routing, xg, router,
-        out_like=(like_probs, like_k, shlib.template(xg, like_k.shape, torch.int64),
-                  like_probs),
+        out_like=(like_sum, like_k, shlib.template(xg, like_k.shape, torch.int64),
+                  like_sum),
         grad_placements=(None, shlib.partial_over(xg)))
-    aux = E * torch.sum(probs.mean(dim=(0, 1)) * (counts.mean(dim=(0, 1)) / k))
+    n_tok = xg.shape[0] * xg.shape[1]
+    aux = E * torch.sum((shlib.settle(p_sum) / n_tok) * (shlib.settle(c_sum) / n_tok / k))
 
     m = names.index("model")
     # experts over the model axis, whole on the others (the FSDP gather)

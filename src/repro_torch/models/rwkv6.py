@@ -258,6 +258,8 @@ def _time_mix(x, p, cfg: ModelConfig, *, S0=None, x_prev=None, heads=None):
 
 
 def channel_mix(x, p, cfg: ModelConfig, *, x_prev=None):
+    if shlib.is_dtensor(x):
+        return _channel_mix_sharded(x, p, cfg, x_prev=x_prev)
     xx = _token_shift(x, x_prev) - x
     xk = x + xx * p["mu_k"].to(x.dtype)
     xr = x + xx * p["mu_r"].to(x.dtype)
@@ -266,6 +268,35 @@ def channel_mix(x, p, cfg: ModelConfig, *, x_prev=None):
     kv = torch.matmul(k, p["wv"].to(x.dtype))
     r = torch.sigmoid(torch.matmul(xr, p["wr"].to(x.dtype)))
     return shard(r * kv, "batch", "seq", "embed"), x[:, -1]
+
+
+def _channel_mix_sharded(x, p, cfg: ModelConfig, *, x_prev=None):
+    """:func:`channel_mix` in regions on local shards: the key product
+    over the rank's ``ffn`` columns, the value product (a pending sum,
+    reduced), the receptance product over its ``heads`` columns, their
+    gated product on those columns, gathered by the closing ``shard``.
+    Each product is a region of its own: where the batch does not split,
+    a product is a pending sum over the FSDP dim (``pinned``)."""
+    row, chan = ("batch", "seq", "embed"), ("batch", "seq", "heads")
+    prev = ("batch", "embed")
+
+    def mixed(xl, pl, mu, w):
+        return torch.matmul(xl + (_token_shift(xl, pl) - xl) * mu.to(xl.dtype),
+                            w.to(xl.dtype))
+
+    k = shlib.pinned(mixed, x, x_prev, p["mu_k"], p["wk"],
+                     axes=(row, prev, ("embed",), None), out_axes=("batch", "seq", "ffn"),
+                     out_shape=(*x.shape[:-1], p["wk"].shape[1]), out_dtype=x.dtype)
+    kv = shlib.settle(shlib.pinned(
+        lambda kl, wv: torch.matmul(torch.square(torch.relu(kl)), wv.to(kl.dtype)),
+        k, p["wv"], axes=(("batch", "seq", "ffn"), None),
+        out_axes=row, out_shape=tuple(x.shape), out_dtype=x.dtype))
+    r = shlib.pinned(mixed, x, x_prev, p["mu_r"], p["wr"],
+                     axes=(row, prev, ("embed",), None),
+                     out_axes=chan, out_shape=tuple(x.shape), out_dtype=x.dtype)
+    rkv = shlib.pinned(lambda rl, kvl: torch.sigmoid(rl) * kvl, r, kv, axes=(chan, chan),
+                       out_axes=chan, out_shape=tuple(x.shape), out_dtype=x.dtype)
+    return shard(rkv, "batch", "seq", "embed"), x[:, -1]
 
 
 class RWKV6LM(nn.Module):

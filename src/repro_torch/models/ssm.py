@@ -21,9 +21,9 @@ and a loop over tokens would cost a launch per token and layer.
 
 The reference's ``shard`` annotations stand at its own sites: under
 DTensor (a sharded run) the inner channels follow ``heads`` over the
-model axis and the rest goes through DTensor's propagation, with the
-input-dependent B, C and step (contractions over the channels) reduced
-before the scan.
+model axis, every region on local shards with its placements stated
+(:func:`_ssm_sharded`), the input-dependent B, C and step (contractions
+over the channels) reduced before the scan.
 """
 
 from __future__ import annotations
@@ -113,41 +113,87 @@ def ssm_scan_chunked(a, b, h0, chunk: int):
 def ssm_branch(x, p, cfg: ModelConfig, *, state=None):
     """x: (B, T, d). state: (conv_buf, h) or None.
     Returns (y, new_state)."""
-    B, T, d = x.shape
-    st = cfg.ssm_state
     conv_buf, h0 = state if state is not None else (None, None)
-
+    if shlib.is_dtensor(x):
+        return _ssm_sharded(x, p, cfg, conv_buf, h0)
     xz = torch.matmul(x, p["w_in"].to(x.dtype))
     xi, z = torch.chunk(xz, 2, dim=-1)                    # (B, T, di) each
     xi = shard(xi, "batch", "seq", "heads")
     xi, conv_buf = _causal_conv(xi, p["conv_w"].to(x.dtype), conv_buf)
-    xi = F.silu(xi)
-
-    xf = xi.to(torch.float32)
+    xf = F.silu(xi).to(torch.float32)
     bt = torch.matmul(xf, p["w_b"].to(torch.float32))     # (B, T, st)
     ct = torch.matmul(xf, p["w_c"].to(torch.float32))
     # rank-1 data-dependent step size (scalar per token + per-channel bias)
     dt_raw = torch.matmul(xf, p["w_dt"].to(torch.float32))  # (B, T, 1)
-    if shlib.is_dtensor(bt):
-        # the contractions over the sharded channels end in pending sums:
-        # settle the small (B, T, st) results here, not the scan's
-        # (B, T, di, st) operands at every doubling pass
-        bt, ct, dt_raw = shlib.settle(bt), shlib.settle(ct), shlib.settle(dt_raw)
-    dt = F.softplus(dt_raw + p["dt_bias"].to(torch.float32)[None, None])  # (B, T, di)
-    A = -torch.exp(p["a_log"].to(torch.float32))          # (di, st), negative
+    y, h_last = _scan(xf, bt, ct, dt_raw, p["dt_bias"], p["a_log"], p["d_skip"], z,
+                      h0, cfg, x.dtype)
+    out = torch.matmul(y, p["w_out"].to(x.dtype))
+    return shard(out, "batch", "seq", "embed"), (conv_buf, h_last)
+
+
+def _scan(xf, bt, ct, dt_raw, dt_bias, a_log, d_skip, z, h0, cfg: ModelConfig, dtype):
+    """The step, the scan and the gated output over the channels of
+    ``xf`` (all of them, or a rank's own): (y, h_last)."""
+    B, T, di = xf.shape
+    dt = F.softplus(dt_raw + dt_bias.to(torch.float32)[None, None])  # (B, T, di)
+    A = -torch.exp(a_log.to(torch.float32))               # (di, st), negative
     a = torch.exp(dt[..., None] * A[None, None])          # (B, T, di, st)
     b = (dt * xf)[..., None] * bt[:, :, None, :]          # (B, T, di, st)
-
     if h0 is None:
-        h0 = torch.zeros((B, xi.shape[-1], st), dtype=torch.float32, device=x.device)
+        h0 = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32, device=xf.device)
     if T == 1:
         h_last = a[:, 0] * h0 + b[:, 0]
         h_all = h_last[:, None]
     else:
         h_all, h_last = ssm_scan_chunked(a, b, h0, cfg.scan_chunk)
-
     y = torch.einsum("btds,bts->btd", h_all, ct)          # (B, T, di)
-    y = y + p["d_skip"].to(torch.float32)[None, None] * xf
-    y = y.to(x.dtype) * F.silu(z)
-    out = torch.matmul(y, p["w_out"].to(x.dtype))
+    y = y + d_skip.to(torch.float32)[None, None] * xf
+    return y.to(dtype) * F.silu(z), h_last
+
+
+def _ssm_sharded(x, p, cfg: ModelConfig, conv_buf, h0):
+    """:func:`ssm_branch` with the inner channels over the ``heads`` mesh
+    axis, each region on local shards (:func:`~repro_torch.distributed.
+    sharding.pinned`): the input projection (each rank takes its channels'
+    columns of both halves of ``w_in``), the conv, the three
+    contractions over the channels (pending sums, reduced before the
+    scan), the scan, and the output projection (a pending sum)."""
+    B, T, d = x.shape
+    di, st = p["w_in"].shape[1] // 2, cfg.ssm_state
+    row, chan = ("batch", "seq", "embed"), ("batch", "seq", "heads")
+    n, lo = shlib.pinned_range((B, T, di), chan, x.device_mesh, 2)
+
+    def in_proj(xl, wl):
+        w = wl.to(xl.dtype)
+        return (torch.matmul(xl, w[:, lo:lo + n]),
+                torch.matmul(xl, w[:, di + lo:di + lo + n]))
+
+    xi, z = shlib.pinned(in_proj, x, p["w_in"], axes=(row, ("embed", None)),
+                         out_axes=(chan, chan), out_shape=((B, T, di),) * 2,
+                         out_dtype=(x.dtype,) * 2)
+    def conv(xl, wl, bl):
+        out, bl = _causal_conv(xl, wl.to(xl.dtype), bl)
+        return F.silu(out).to(torch.float32), bl
+
+    ck = p["conv_w"].shape[0]
+    buf = ("batch", None, "heads")
+    xf, conv_buf = shlib.pinned(
+        conv, xi, p["conv_w"], conv_buf, axes=(chan, None, buf),
+        out_axes=(chan, buf), out_shape=((B, T, di), (B, ck - 1, di)),
+        out_dtype=(torch.float32, x.dtype))
+    bt, ct, dt_raw = (shlib.settle(shlib.pinned(
+        lambda xl, wl: torch.matmul(xl, wl.to(torch.float32)), xf, p[w],
+        axes=(chan, None), out_axes=("batch", "seq", None),
+        out_shape=(B, T, p[w].shape[1]), out_dtype=torch.float32))
+        for w in ("w_b", "w_c", "w_dt"))
+    y, h_last = shlib.pinned(
+        lambda *a: _scan(*a, cfg, x.dtype),
+        xf, bt, ct, dt_raw, p["dt_bias"], p["a_log"], p["d_skip"], z, h0,
+        axes=(chan, *(("batch", "seq", None),) * 3, None, None, None, chan,
+              ("batch", "heads", None)),
+        out_axes=(chan, ("batch", "heads", None)), out_shape=((B, T, di), (B, di, st)),
+        out_dtype=(x.dtype, torch.float32))
+    out = shlib.pinned(lambda yl, wl: torch.matmul(yl, wl.to(yl.dtype)), y, p["w_out"],
+                       axes=(chan, None), out_axes=row, out_shape=(B, T, d),
+                       out_dtype=x.dtype)
     return shard(out, "batch", "seq", "embed"), (conv_buf, h_last)

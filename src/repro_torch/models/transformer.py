@@ -22,7 +22,11 @@ which keeps the block's inputs and recomputes the rest in the backward.
 PyTorch has no counterpart of JAX's ``dots_with_no_batch_dims_saveable``
 that sees the hand kernels (selective checkpointing decides per aten op,
 and the kernels are launched outside aten), so ``"dots"`` recomputes the
-products too: the same gradients, one more forward per block. The
+products too: the same gradients, one more forward per block. Under
+``"full"`` the plain attention also checkpoints its own chunks, as the
+reference's attention does (its backward recomputes the score blocks
+once more); under ``"dots"`` it keeps them, the products' extra
+recompute standing in for that one. The
 recompute runs under the kernel plane and the step-program mark that
 were active in the forward, whichever thread autograd runs it on, so it
 launches what the forward launched and never routes through a handle.

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding as shlib
 from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef, cast_params
@@ -89,13 +90,33 @@ class WhisperLM(nn.Module):
         cfg = self.cfg
         T = tokens.shape[1]
         x = L.lookup(params["tok"]["embed"].to(cfg.compute_dtype), tokens)
-        table = params["dec_pos"].to(x.dtype)
+        table = params["dec_pos"]
         # the reference's dynamic_slice clamps the start so the slice fits
         start = min(max(int(pos0), 0), table.shape[0] - T)
-        return shard(x + table[start:start + T][None], "batch", "seq", "embed")
+
+        def add(xl, tl):
+            return xl + tl.to(xl.dtype)[start:start + T][None]
+
+        if shlib.is_dtensor(x):
+            # each rank's batch rows plus the whole table's rows
+            rows = ("batch", "seq", "embed")
+            x = shlib.pinned(add, x, table, axes=(rows, None), out_axes=rows,
+                             out_shape=tuple(x.shape),
+                             out_dtype=x.dtype)
+        else:
+            x = add(x, table)
+        return shard(x, "batch", "seq", "embed")
 
     def _logits(self, params, h):
-        logits = torch.matmul(h, params["tok"]["embed"].to(h.dtype).T)
+        table = params["tok"]["embed"]
+        if shlib.is_dtensor(h):
+            # each rank's batch rows against its rows of the tied table
+            return shlib.pinned(
+                lambda hl, tl: self._logits({"tok": {"embed": tl}}, hl), h, table,
+                axes=(("batch", "seq", "embed"), ("vocab", "embed")),
+                out_axes=("batch", "seq", "vocab"),
+                out_shape=(*h.shape[:-1], table.shape[0]), out_dtype=h.dtype)
+        logits = torch.matmul(h, table.to(h.dtype).T)
         return shard(logits, "batch", "seq", "vocab")
 
     def _decode_stack(self, params, x, enc_out, mode, cache=None, pos=None):
