@@ -85,9 +85,10 @@ the kernels' launch counts set to 0 just before and read just after:
    production train and decode cells at full depth on a fake group of
    256 (DIST_DRYRUN), which must read a useful ratio of at least 0.75
    and a peak of at most 8.5 GiB; the cells that torch 2.11's DTensor
-   once failed or replicated, the MoE train cell and the two long decode
-   cells, cut to one layer, on the 16 x 16 mesh and (deepseek-7b's train
-   cell) the 2 x 16 x 16 one
+   once failed or replicated, the MoE train cell, the two long decode
+   cells and three prefill cells (deepseek-7b, qwen2.5-32b, whisper-tiny
+   at the dry run's prefill chunks 4096 x 8192), cut to one layer, on
+   the 16 x 16 mesh and (deepseek-7b's train cell) the 2 x 16 x 16 one
    (``repro_torch.launch.dist_cells``), whose product FLOPs and link
    bytes must be within 1 % of those torch 2.13 traced
    (``dist_cells.json``) and their HBM bytes and peak within 10 %; and
@@ -97,20 +98,38 @@ the kernels' launch counts set to 0 just before and read just after:
    caches likewise at batch 1, which does not split over the data axis,
    and 4 (``tests/test_torch_dist_decode.py``, within 1e-5). The
    report's ``dist`` entry holds the torch version, each cut cell's
-   counts beside 2.13's, and each check's worst case.
+   counts beside 2.13's, and each check's worst case;
+8. serving in bf16 (phase ``bf16``): deepseek-7b (all 30 layers) and
+   qwen3-moe-30b-a3b (all 48 layers, 60.2 GB of bf16 weights) at full
+   width under the serve CLI's session (``--autotune --kernel-tuning
+   kernel``) with params and compute in bf16 (``BF16_RUNS``), through
+   ``serve_loop.generate``. Every plane handle must be registered at
+   dtype bfloat16, the bf16 instantiations of the matmul, attention and
+   rmsnorm kernels must launch and no fp32 one may, and no variant may
+   be quarantined. Then deepseek-7b's prefill logits at full width, 2
+   layers: the bf16 run with the hand kernels (a) against the bf16 run
+   through the plain versions (b) and the fp32 run of the same params
+   (c); the kernels may add no more error than bf16 itself, so the
+   relative L2 distance of (a) from (b) may not pass that of (b) from
+   (c).
 
 Then it holds each kernel against its plain PyTorch version (every
 instantiation at every ring depth at ragged shapes — for attention at
 each head dim, 16, 64 and 128 — a few points at the
 main path's shapes, with limits a TF32 product fails, and a TF32 control
-that shows it), compares the served model's prefill logits with the
+that shows it; the bf16 instantiations of matmul and attention likewise,
+on bf16 inputs, within MATMUL_TOL and ATTENTION_BF16_TOL, with a control
+that attention with p rounded to fp8 fails), compares the
+served model's prefill logits with the
 plain versions on the CPU at full width and 2 layers (and the training
 loss's gradient of every parameter the same way), holds the gradients of
 the rmsnorm and attention Functions against autograd through their
 plain versions, and times each kernel beside its bound, its plain
 version and one PyTorch library call (euclid at each Table 3 input;
-rmsnorm at prefill's and decode's shapes, at d 4096 and at hymba's 1600). It prints one ``kernels`` JSON line and, last, ``{"ok": true,
-"device": {...}}``.
+rmsnorm at prefill's and decode's shapes, at d 4096 and at hymba's 1600;
+the bf16 matmul and attention at the bf16 phase's handle shapes, against
+the bf16 tensor cores' 989 TFLOP/s). It prints one ``kernels`` JSON line
+and, last, ``{"ok": true, "device": {...}}``.
 A profiler trace of one prefill and a few decode steps at full width
 says where the serving time goes (device busy share, kernels by device
 time), and one of 3 training steps where the training time goes, the
@@ -120,7 +139,8 @@ Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result. Full results go to
 ``chiprun_out/chip_smoke.json``. ``--only build,check`` (any of
 ``build``, ``table3``, ``serve``, ``warm`` (after ``serve``), ``profile``,
-``front``, ``families``, ``recurrent``, ``check``, ``logits``, ``train``, ``dist``, ``time``) runs a subset and
+``front``, ``families``, ``recurrent``, ``bf16``, ``check``, ``logits``, ``train``,
+``dist``, ``time``) runs a subset and
 prints no verdict: a quick look at a new
 kernel (``--only build,check,time`` times the kernels at DEFAULT_POINT
 where Table 3 has not run).
@@ -144,9 +164,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 #: NVIDIA H100 SXM data-sheet peaks (dense): fp32 outside the tensor
-#: cores, TF32 on the tensor cores, and device-memory bandwidth
+#: cores, TF32 and bf16 on the tensor cores, and device-memory bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
 EUCLID_SRC = "src/repro_torch/kernels/euclid/csrc/euclid.cuh"
@@ -171,7 +192,7 @@ SERVE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel"
 SERVE_EXAMPLE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel",
                       "--requests", "2"]
 PHASES = ("build", "table3", "serve", "warm", "profile", "front", "families", "recurrent",
-          "check", "logits", "train", "dist", "time")
+          "bf16", "check", "logits", "train", "dist", "time")
 #: the families phase: each model at full width, its depth cut to what
 #: the card holds (None: all of it), served under the serve CLI's
 #: session with --kernel-tuning kernel (see run_family):
@@ -195,6 +216,17 @@ RECURRENT_RUNS = (
     ("rwkv6-1.6b", 4, 512, 32, 2),
     ("rwkv6-1.6b", 1, 4096, 16, 1),
 )
+#: the bf16 phase: each model whole at full width with params and compute
+#: in bf16, served under the serve CLI's session with --kernel-tuning
+#: kernel (see run_family): (arch, batch, prompt, new tokens, requests),
+#: the serve path's traffic
+BF16_RUNS = (
+    ("deepseek-7b", 4, 512, 32, 2),
+    ("qwen3-moe-30b-a3b", 4, 512, 32, 2),
+)
+#: the bf16 phase's model-level check: deepseek-7b at full width, this
+#: many layers, B 4, T 512
+BF16_LOGIT_LAYERS = 2
 #: the recurrent phase's card-against-CPU comparison: 2 layers at full
 #: width, B 4, T 512, then this many decode steps fed the card's tokens
 RECURRENT_DECODE_STEPS = 8
@@ -310,6 +342,16 @@ MATMUL_TOL = {"rtol": 2e-5, "atol": 1e-3}
 ATTENTION_TOL = {"rtol": 1e-5, "atol": 1e-5}
 RMSNORM_TOL = {"rtol": 1e-5, "atol": 1e-5}
 RMSNORM_BF16_TOL = {"rtol": 1e-2, "atol": 1e-2}
+#: the bf16 input class, kernel against plain version on the same bf16
+#: inputs. matmul: a product of two bf16 values is exact in fp32 and both
+#: sides accumulate and write fp32, so only the summation order differs:
+#: MATMUL_TOL holds it too. attention: bf16 out, from fp32 sums of p rounded to bf16
+#: against another running max (32-key slices against the plain version's
+#: blocks): 1e-2 relative and absolute, one bf16 ulp (2^-7 at 1) of
+#: headroom inside the reference's own bf16 limit, 2e-2. Its control
+#: (check_attention): p rounded to fp8 (e4m3) must be refused, and an
+#: unblocked softmax with p rounded to bf16 admitted
+ATTENTION_BF16_TOL = {"rtol": 1e-2, "atol": 1e-2}
 #: prefill logits of a full-width, 2-layer model, card (hand kernels,
 #: cuBLAS fp32) against CPU (plain versions), same params and tokens:
 #: fp32 on both sides, sums in other orders (deepseek-7b read 3.6e-5 on
@@ -329,17 +371,21 @@ ROUTE_TIE = 1e-4
 GRAD_REL_L2 = 1e-4
 
 
-def recurrent_kernel_specs(kernel: str) -> list:
-    """(label, spec) of ``kernel`` at each (arch, batch, prompt) of
-    RECURRENT_RUNS: the shapes at which the recurrent phase's plane
-    handle of that kernel evaluates its points (model_kernel_specs, as
-    the serve loop attaches them)."""
+def handle_specs(kernel: str, runs, dtype=None) -> list:
+    """(label, spec) of ``kernel`` at each (arch, batch, prompt) of a
+    phase's ``runs`` (RECURRENT_RUNS, or BF16_RUNS with ``dtype``
+    bfloat16): the shapes at which that phase's plane handle of the
+    kernel evaluates its points (model_kernel_specs, as the serve loop
+    attaches them)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import model_kernel_specs
 
     out = []
-    for arch, batch, prompt, _, _ in RECURRENT_RUNS:
-        for name, spec in model_kernel_specs(get_config(arch), batch=batch, seq=prompt):
+    for arch, batch, prompt, _, _ in runs:
+        cfg = get_config(arch)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, compute_dtype=dtype, param_dtype=dtype)
+        for name, spec in model_kernel_specs(cfg, batch=batch, seq=prompt):
             if name == kernel:
                 out.append((f"{arch} B {batch} T {prompt}", spec))
     return out
@@ -581,11 +627,14 @@ def check_lintra(dev, gen) -> tuple[float, int, list, list]:
     return max(worst, t4_worst), n_checks + t4_checks, compile_s, first_launch_s
 
 
-def bound(flops: float, nbytes: float, *, tf32x3: bool = False) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, *, tf32x3: bool = False,
+          bf16: bool = False) -> tuple[float, str]:
     """The least ms the card could take, and what bounds it: the fp32
-    operations on the CUDA cores, or (``tf32x3``) the same operations as
-    three TF32 products on the tensor cores, against the bytes."""
-    rate = PEAK_TF32_FLOPS / 3 if tf32x3 else PEAK_FP32_FLOPS
+    operations on the CUDA cores, (``tf32x3``) the same operations as
+    three TF32 products on the tensor cores, or (``bf16``) bf16 products
+    on the tensor cores, against the bytes."""
+    rate = (PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3 if tf32x3
+            else PEAK_FP32_FLOPS)
     t_ops, t_bytes = flops / rate, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
@@ -631,8 +680,8 @@ def reset_lm_counts() -> None:
 
     for fn in (matmul_cuda, rmsnorm_cuda, flash_attention_cuda):
         fn.launches = 0
+        fn.launches_by_dtype = {}
     rmsnorm_cuda.launches_by_rows = {}
-    flash_attention_cuda.launches_by_head_dim = {}
 
 
 def lm_counts() -> dict:
@@ -642,6 +691,30 @@ def lm_counts() -> dict:
 
     return {"matmul": matmul_cuda.launches, "rmsnorm": rmsnorm_cuda.launches,
             "flash_attention": flash_attention_cuda.launches}
+
+
+def attention_by_head_dim() -> dict:
+    """The flash kernel's launches by head dim, over both input types."""
+    from repro_torch.kernels.attention.attention import flash_attention_cuda
+
+    out: dict = {}
+    for by_dh in flash_attention_cuda.launches_by_dtype.values():
+        for dh, n in by_dh.items():
+            out[dh] = out.get(dh, 0) + n
+    return dict(sorted(out.items()))
+
+
+def lm_counts_by_dtype() -> dict:
+    """The launches of lm_counts split by input type (attention's also by
+    head dim)."""
+    from repro_torch.kernels.attention.attention import flash_attention_cuda
+    from repro_torch.kernels.matmul.matmul import matmul_cuda
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
+
+    return {"matmul": dict(matmul_cuda.launches_by_dtype),
+            "rmsnorm": dict(rmsnorm_cuda.launches_by_dtype),
+            "flash_attention": {t: dict(sorted(by.items())) for t, by in
+                                flash_attention_cuda.launches_by_dtype.items()}}
 
 
 def run_serve(dev) -> dict:
@@ -892,7 +965,6 @@ def run_front(dev) -> dict:
     (``examples/torch_serve_lm.py``: heads of 16, the flash kernel's Dh 16
     instantiations). Launch counts are set to 0 just before and read just
     after."""
-    from repro_torch.kernels.attention.attention import flash_attention_cuda
     from repro_torch.kernels.euclid.euclid import euclid_cuda
     from repro_torch.kernels.lintra.lintra import lintra_triton
 
@@ -908,7 +980,7 @@ def run_front(dev) -> dict:
     seconds = time.perf_counter() - t0
     launches = {"euclid": euclid_cuda.launches, "lintra": lintra_triton.launches,
                 **lm_counts()}
-    by_dh = dict(sorted(flash_attention_cuda.launches_by_head_dim.items()))
+    by_dh = attention_by_head_dim()
     print(f"front path: {seconds:.1f} s, kernel launches {launches}; flash attention "
           f"by head dim {by_dh}")
     if len(t4["rows"]) != 6:
@@ -933,12 +1005,14 @@ def run_front(dev) -> dict:
 
 
 def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
-               requests: int) -> dict:
+               requests: int, dtype=None) -> dict:
     """One model of the families phase at full width (``layers`` of its
     layers, or all) under the serve CLI's session (``make_session``, with
-    ``--autotune --kernel-tuning kernel``). A whole model goes through the
-    CLI's ``serve``; a model cut in depth through ``serve_loop.generate``
-    with the prompts ``serve`` draws, and for the VLM
+    ``--autotune --kernel-tuning kernel``), with params and compute in
+    ``dtype`` where it is given (the bf16 phase). A whole model in its
+    config's dtype goes through the CLI's ``serve``; a model cut in depth,
+    or in another dtype, through ``serve_loop.generate`` with the prompts
+    ``serve`` draws and params drawn once from the serve seed, and for the VLM
     ``cfg.vision_patches`` patch embeddings, so that the cache and
     positions the loop sizes by them hold no gap (``serve`` passes 16, as
     the reference does: ROADMAP Queue 3, R2). Launch counts, the peak
@@ -950,18 +1024,23 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
     window, as in the reference, and launches no flash kernel; a model
     without attention (rwkv6) makes no attention call of either kind.
     The handles' own evaluations may launch the flash kernel whatever
-    the model."""
+    the model. With ``dtype``, every handle must be registered at that
+    dtype, and the matmul, attention and rmsnorm kernels must launch
+    only instantiations of that type."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.attention.attention import flash_attention_cuda
     from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import init_tree
     from repro_torch.runtime.serve_loop import ServeConfig, generate
 
     full = get_config(arch)
     cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype, param_dtype=dtype)
     args, tcfg = serve_cli.parse_args(
         ["--arch", arch, "--autotune", "--kernel-tuning", "kernel", "--batch", str(batch),
          "--prompt-len", str(prompt), "--tokens", str(tokens), "--requests", str(requests)])
@@ -999,12 +1078,15 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
     try:
         reset_lm_counts()
         t0 = time.perf_counter()
-        if layers is None:
+        if layers is None and dtype is None:
             serve_cli.serve(args, tcfg, session, on_request=on_request)
         else:
             serve_cfg = ServeConfig(max_new_tokens=tokens, tuning=tcfg)
+            params = init_tree(build_model(cfg).param_defs(),
+                               torch.Generator(device=dev).manual_seed(serve_cfg.seed),
+                               dtype=cfg.param_dtype, device=dev)
             for req in range(requests):
-                b = {"tokens": torch.randint(
+                b = {"params": params, "tokens": torch.randint(
                     0, cfg.vocab, (batch, prompt),
                     generator=torch.Generator(device=dev).manual_seed(req), device=dev)}
                 if cfg.family == "vlm":
@@ -1016,11 +1098,14 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = lm_counts()
-        by_dh = dict(sorted(flash_attention_cuda.launches_by_head_dim.items()))
+        by_dtype = lm_counts_by_dtype()
+        by_dh = attention_by_head_dim()
         rms_by_rows = dict(sorted(rmsnorm_cuda.launches_by_rows.items()))
+        specs = {h.name: dict(h.specialization) for h in session.plane.handles()}
     finally:
         L.flash_attention_torch, L.flash_attention_cuda = real_plain, real_flash
         session.close()
+        params = None
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     gc.collect()
     torch.cuda.empty_cache()
@@ -1048,7 +1133,23 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
     faulted = [r["request"] for r in rows if r["quarantined"]]
     if faulted:
         fail(f"{arch}: variants were quarantined in requests {faulted}")
+    if dtype is not None:
+        name = str(dtype).removeprefix("torch.")
+        print(f"  {arch} in {name}: launches by type {by_dtype}; handles "
+              + "; ".join(f"{n} {spec}" for n, spec in sorted(specs.items())))
+        wrong = {n: spec.get("dtype") for n, spec in specs.items() if spec.get("dtype") != name}
+        if wrong or not specs:
+            fail(f"{arch}: handles not registered at {name}: {wrong or 'none registered'}")
+        for kernel in ("matmul", "rmsnorm", "flash_attention"):
+            types = by_dtype[kernel]
+            if not types.get(name):
+                fail(f"{arch}: the {name} {kernel} kernel was never launched ({types})")
+            if set(types) - {name}:
+                fail(f"{arch}: {kernel} launched instantiations of {sorted(set(types) - {name})} "
+                     f"for {name} specs")
     return {"arch": arch, "n_layers": cfg.n_layers, "of_layers": full.n_layers,
+            "dtype": str(cfg.compute_dtype).removeprefix("torch."),
+            "handle_specs": specs, "launches_by_dtype": by_dtype,
             "batch": batch, "prompt": prompt, "tokens": tokens,
             "prefill_tokens": prompt + (cfg.vision_patches if cfg.family == "vlm" else 0),
             "params": cfg.n_params(), "seconds": seconds, "requests": rows,
@@ -1097,6 +1198,105 @@ def run_families(dev) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"families path: {out['seconds']:.1f} s, kernel launches {launches}; flash "
           f"attention by head dim {out['attention_launches_by_head_dim']}")
+    return out
+
+
+def run_bf16(dev) -> dict:
+    """The bf16 phase: each model of BF16_RUNS whole, at full width, with
+    params and compute in bf16 (run_family), each model's weights freed
+    before the next; then the model-level check (check_bf16_logits)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"runs": {}}
+    for arch, batch, prompt, tokens, requests in BF16_RUNS:
+        out["runs"][arch] = run_family(dev, arch, None, batch, prompt, tokens, requests,
+                                       dtype=torch.bfloat16)
+        gc.collect()
+        torch.cuda.empty_cache()
+    def total(counts):  # a count, or attention's counts by head dim
+        return sum(counts.values()) if isinstance(counts, dict) else counts
+
+    out["launches_bf16"] = {
+        n: sum(total(r["launches_by_dtype"][n].get("bfloat16", 0))
+               for r in out["runs"].values())
+        for n in ("matmul", "rmsnorm", "flash_attention")}
+    out["logits"] = check_bf16_logits(dev)
+    out["seconds"] = time.perf_counter() - t0
+    for arch, r in out["runs"].items():
+        for row in r["requests"]:
+            print(f"  bf16 {arch} request {row['request']}: prefill {row['prefill_s']:.4f} s, "
+                  f"decode {row['decode_tok_s']:.2f} tok/s, overhead "
+                  f"{row['overhead_pct']:.2f} %")
+        print(f"  bf16 {arch}: peak {r['max_memory_allocated_gb']:.2f} GB "
+              f"(torch.cuda.max_memory_allocated)")
+    print(f"bf16 phase: {out['seconds']:.1f} s, bf16 kernel launches {out['launches_bf16']}")
+    return out
+
+
+def check_bf16_logits(dev) -> dict:
+    """deepseek-7b at full width, BF16_LOGIT_LAYERS layers, B 4, T 512:
+    params drawn in fp32 and cast to bf16, prefill logits of (a) the bf16
+    model through the hand kernels, (b) the bf16 model through the plain
+    versions (the layers' kernel calls replaced by them, on the card),
+    (c) the fp32 model through the plain versions. Fails if the relative
+    L2 distance of (a) from (b) passes that of (b) from (c): the kernels
+    may add no more error than bf16 itself."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attention.attention import flash_attention_plain
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_plain
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import build_model
+    from repro_torch.models.params import cast_params, init_tree
+
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(get_config("deepseek-7b"), n_layers=BF16_LOGIT_LAYERS)
+    cfg16 = dataclasses.replace(cfg32, compute_dtype=torch.bfloat16,
+                                param_dtype=torch.bfloat16)
+    p32 = init_tree(build_model(cfg32).param_defs(),
+                    torch.Generator(device=dev).manual_seed(0), device=dev)
+    p16 = cast_params(p32, torch.bfloat16)
+    batch = {"tokens": torch.randint(0, cfg32.vocab, (4, 512),
+                                     generator=torch.Generator(device=dev).manual_seed(0),
+                                     device=dev)}
+
+    def prefill(cfg, params):
+        reset_lm_counts()
+        with torch.no_grad():
+            logits, _ = build_model(cfg).prefill(params, dict(batch))
+        torch.cuda.synchronize()
+        return logits.float(), lm_counts_by_dtype()
+
+    a, launched = prefill(cfg16, p16)
+    real = L.flash_attention_cuda, L.rmsnorm_cuda
+    L.flash_attention_cuda = lambda q, k, v, point, causal=True: flash_attention_plain(
+        q, k, v, point, causal=causal)
+    L.rmsnorm_cuda = lambda x, w, point, eps=1e-6: rmsnorm_plain(x, w, point, eps=eps)
+    try:
+        b, plain_b = prefill(cfg16, p16)
+        c, plain_c = prefill(cfg32, p32)
+    finally:
+        L.flash_attention_cuda, L.rmsnorm_cuda = real
+
+    def rel(x, y):
+        return float(torch.linalg.vector_norm(x - y) / torch.linalg.vector_norm(y))
+
+    out = {"a_b": rel(a, b), "b_c": rel(b, c), "a_c": rel(a, c),
+           "launches": launched, "seconds": time.perf_counter() - t0}
+    print(f"bf16 logits, deepseek-7b at full width, {BF16_LOGIT_LAYERS} layers, B 4, T 512: "
+          f"relative L2 hand kernels (a) from plain (b) {out['a_b']:.4e}; plain bf16 (b) "
+          f"from plain fp32 (c) {out['b_c']:.4e}; (a) from (c) {out['a_c']:.4e}; launches "
+          f"of (a) {launched}; {out['seconds']:.1f} s")
+    if any(plain_b.values()) or any(plain_c.values()):
+        fail(f"the plain runs launched kernels: {plain_b}, {plain_c}")
+    for kernel in ("rmsnorm", "flash_attention"):       # the layers' products are cuBLAS's
+        if not launched[kernel].get("bfloat16"):
+            fail(f"the bf16 prefill never launched the bf16 {kernel} kernel: {launched}")
+    if not out["a_b"] <= out["b_c"]:
+        fail(f"bf16 logits: the hand kernels add more error ({out['a_b']:.4e}) than bf16 "
+             f"itself ({out['b_c']:.4e})")
     return out
 
 
@@ -1572,10 +1772,12 @@ def check_cases(name, cases, tol) -> dict:
 
 
 def check_matmul(lib, dev, gen) -> dict:
-    """Every instantiation at a ragged shape (M, N, K no multiple of any
-    block), a few points at the serving shape and at each shape of the
-    recurrent path's handle (recurrent_kernel_specs), and a TF32
-    control."""
+    """Every fp32 instantiation at a ragged shape (M, N, K no multiple of
+    any block), a few points at the serving shape and at each shape of
+    the recurrent path's handle (handle_specs), and a TF32
+    control; then every bf16 instantiation at every ring depth at the
+    ragged shape and a few points at each shape of the bf16 phase's
+    handle, on the same inputs rounded to bf16 (MATMUL_TOL)."""
     import torch
 
     from repro_torch.kernels.matmul.matmul import (
@@ -1592,7 +1794,10 @@ def check_matmul(lib, dev, gen) -> dict:
         return inputs[shape]
 
     ragged = (333, 450, 700)
-    for i, sym in enumerate(sorted(instantiations())):
+    fp32, bf16 = [], []
+    for sym in sorted(instantiations()):
+        (bf16 if sym.endswith("_bf16") else fp32).append(sym)
+    for i, sym in enumerate(fp32):
         dims = [int(v) for v in re.findall(r"\d+", sym)]
         point = dict(zip(PHASE1, dims), order=("mn", "nm")[i % 2],
                      scratch=(i // 2) % 2, lookahead=i % 3)
@@ -1609,7 +1814,7 @@ def check_matmul(lib, dev, gen) -> dict:
                       lambda a=a, b=b, p=point: matmul_plain(a, b, p)))
     # the recurrent path's handle shapes, (B T, d_ff, d): the base point
     # and a stride through the Hopper space at each
-    for label, spec in recurrent_kernel_specs("matmul"):
+    for label, spec in handle_specs("matmul", RECURRENT_RUNS):
         shape = (spec["M"], spec["N"], spec["K"])
         space = make_space(*shape, vmem_kb=lib_capacity_kb(dev), hopper=True)
         for point in [DEFAULT_POINT, *list(space.iter_valid())[::541]]:
@@ -1627,6 +1832,28 @@ def check_matmul(lib, dev, gen) -> dict:
     print(f"matmul control: a TF32 product at the serving shape, max|err| "
           f"{out['tf32_max_abs_err']:.3e} ({out['tf32_tol_used']:.1f} of the "
           f"limit), is refused")
+
+    cases, as_bf16 = [], {}
+
+    def bf16_case(label, shape, point):
+        if shape not in as_bf16:
+            as_bf16[shape] = tuple(t.to(torch.bfloat16) for t in args(shape))
+        a, b = as_bf16[shape]
+        cases.append((f"{point} at {shape} {label}",
+                      lambda: matmul_cuda(a, b, point, lib=lib),
+                      lambda: matmul_plain(a, b, point)))
+
+    for i, sym in enumerate(bf16):
+        dims = [int(v) for v in re.findall(r"\d+", sym.removesuffix("_bf16"))]
+        for la in (0, 1, 2):
+            bf16_case("bf16 ragged", ragged, dict(zip(PHASE1, dims), order=("mn", "nm")[i % 2],
+                                                  scratch=(i // 2) % 2, lookahead=la))
+    for label, spec in handle_specs("matmul", BF16_RUNS, torch.bfloat16):
+        shape = (spec["M"], spec["N"], spec["K"])
+        space = make_space(*shape, dtype_bytes=2, vmem_kb=lib_capacity_kb(dev), hopper=True)
+        for point in [DEFAULT_POINT, *list(space.iter_valid())[::271]]:
+            bf16_case(f"bf16 {label}", shape, point)
+    out["bf16"] = check_cases("matmul bf16", cases, MATMUL_TOL)
     return out
 
 
@@ -1638,9 +1865,14 @@ def check_attention(lib, dev, gen) -> dict:
     prefill (Dh 16); a few points at the serving shape (Dh 128), at
     qwen3-moe's width (Dh 64) and at the timed Dh 16 shape; the families
     path's shapes (FAMILY_ATTENTION_SHAPES) at two points and every ring
-    depth; the recurrent path's handle shapes (recurrent_kernel_specs) at
+    depth; the recurrent path's handle shapes (handle_specs) at
     every point of the Hopper space; and TF32 controls at Dh 128 and
-    64."""
+    64. Then the bf16 instantiations on the same inputs rounded to bf16
+    (ATTENTION_BF16_TOL): every one at every ring depth at the ragged
+    shape, the offset, small and non-causal calls as above, and the bf16
+    phase's handle shapes at every point of the bf16 Hopper space; and a
+    bf16 control at Dh 128 and 64 (unblocked_attention: p in fp8 must be
+    refused, p in bf16 admitted)."""
     import torch
 
     from repro_torch.kernels.attention.attention import (
@@ -1701,7 +1933,7 @@ def check_attention(lib, dev, gen) -> dict:
     # heads; rwkv6's 32 heads, which its layers never call): every block
     # the Hopper space holds at every ring depth, each a point the handle
     # may evaluate
-    for label, spec in recurrent_kernel_specs("attention"):
+    for label, spec in handle_specs("attention", RECURRENT_RUNS):
         shape = tuple(spec[k] for k in ("B", "Tq", "Tkv", "H", "Hk", "Dh"))
         space = make_space(spec["Tq"], spec["Tkv"], spec["Dh"],
                            vmem_kb=lib_capacity_kb(dev), hopper=True)
@@ -1722,7 +1954,75 @@ def check_attention(lib, dev, gen) -> dict:
             fail(f"TF32 products pass the attention limit {ATTENTION_TOL} at {shape}")
         print(f"attention control: the plain version with TF32 products at "
               f"{shape}, max|err| {err:.3e} ({used:.1f} of the limit), is refused")
+
+    cases, per_dh, as_bf16 = [], {}, {}
+
+    def bf16_case(label, shape, point, **kw):
+        if shape not in as_bf16:
+            as_bf16[shape] = tuple(t.to(torch.bfloat16) for t in args(*shape))
+        q, k, v = as_bf16[shape]
+        per_dh[shape[-1]] = per_dh.get(shape[-1], 0) + 1
+        cases.append((f"{point} {kw} at {shape} bf16 {label}",
+                      lambda: flash_attention_cuda(q, k, v, point, lib=lib, **kw),
+                      lambda: flash_attention_plain(q, k, v, point, **kw)))
+
+    for dh in HEAD_DIMS:
+        for i, (bq, bkv) in enumerate(blocks):
+            point = {"block_q": bq, "block_kv": bkv}
+            for la in (0, 1, 2):
+                bf16_case("ragged", (2, 700, 700, 8, 2, dh), dict(point, lookahead=la))
+            bf16_case("offset", (1, 300, 1000, 8, 2, dh),
+                      dict(point, lookahead=(i + 1) % 3), q_offset=700)
+            bf16_case("small", (3, 150, 77, 4, 1, dh), dict(point, lookahead=(i + 2) % 3))
+        bf16_case("non-causal", (2, 200, 333, 8, 2, dh), {"block_q": 128, "block_kv": 256},
+                  causal=False)
+    for label, spec in handle_specs("attention", BF16_RUNS, torch.bfloat16):
+        shape = tuple(spec[k] for k in ("B", "Tq", "Tkv", "H", "Hk", "Dh"))
+        space = make_space(spec["Tq"], spec["Tkv"], spec["Dh"], dtype_bytes=2,
+                           vmem_kb=lib_capacity_kb(dev), hopper=True)
+        points = {(p["block_q"], p["block_kv"], p["lookahead"]) for p in space.iter_valid()}
+        for bq, bkv, la in sorted(points):
+            bf16_case(label, shape, {"block_q": bq, "block_kv": bkv, "lookahead": la})
+    out["bf16"] = check_cases("attention bf16", cases, ATTENTION_BF16_TOL)
+    out["bf16"]["checks_by_head_dim"] = per_dh
+    for shape in (serving, moe):
+        q, k, v = as_bf16[shape] if shape in as_bf16 else (
+            t.to(torch.bfloat16) for t in args(*shape))
+        # the plain version in 128-key blocks, so the unblocked route differs
+        want = flash_attention_plain(q, k, v, {"block_q": 128, "block_kv": 128}).float()
+        sfx = f"_dh{shape[-1]}"
+        for name, p_dtype, refused in (("fp8_control", torch.float8_e4m3fn, True),
+                                       ("unblocked", torch.bfloat16, False)):
+            got = unblocked_attention(q, k, v, p_dtype).float()
+            used = tol_used(got, want, ATTENTION_BF16_TOL)
+            out["bf16"][f"{name}_tol_used{sfx}"] = used
+            if (used <= 1.0) == refused:
+                fail(f"attention bf16 control: {name} at {shape} uses {used:.3f} of the "
+                     f"limit {ATTENTION_BF16_TOL}, so the limit "
+                     f"{'admits a wrong' if refused else 'refuses a right'} result")
+        print(f"attention bf16 control at {shape}: the softmax unblocked with p rounded to "
+              f"fp8 (e4m3) uses {out['bf16'][f'fp8_control_tol_used{sfx}']:.2f} of the limit "
+              f"and is refused; with p rounded to bf16, "
+              f"{out['bf16'][f'unblocked_tol_used{sfx}']:.3f}, admitted")
     return out
+
+
+def unblocked_attention(q, k, v, p_dtype):
+    """Causal attention in one block, scores and sums in fp32, p rounded to
+    ``p_dtype`` before p·v: bf16 gives a right bf16 result by another route
+    than the plain version's blocks; fp8 a wrong one, for the control."""
+    import torch
+
+    B, T, H, Dh = q.shape
+    Hk = k.shape[2]
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(B, T, Hk, H // Hk, Dh),
+                     k.float()) * Dh ** -0.5
+    pos = torch.arange(T, device=q.device)
+    s = s.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), v.float())
+    o = o / p.sum(dim=-1)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh).to(q.dtype)
 
 
 def check_rmsnorm(lib, dev, gen) -> dict:
@@ -2752,6 +3052,75 @@ def time_lm(libs, dev, gen, serve_report) -> dict:
     return out
 
 
+def time_bf16(dev, gen, bf16_report) -> dict:
+    """The bf16 matmul and attention at each of the bf16 phase's handle
+    shapes (handle_specs over BF16_RUNS), at the point that
+    model's handle served last (DEFAULT_POINT, or the step programs'
+    (512, 512) blocks, without the bf16 phase), beside the plain version,
+    one library call and the bound at the bf16 tensor cores' rate. The
+    library call: ``torch.mm`` with an fp32 output (``out_dtype``), as
+    the kernel writes; ``scaled_dot_product_attention`` on the same bf16
+    q, k and v (``enable_gqa``). Device times from CUDA-graph replays."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention.attention import (
+        flash_attention_cuda, flash_attention_plain)
+    from repro_torch.kernels.matmul.matmul import matmul_cuda, matmul_plain
+    from repro_torch.kernels.matmul.ops import DEFAULT_POINT as MM_DEFAULT
+
+    bf16 = torch.bfloat16
+    served = {}
+    for arch, r in ((bf16_report or {}).get("runs") or {}).items():
+        served[arch] = {n: k["best_point"] for n, k in r["requests"][-1]["kernels"].items()}
+    out = {"matmul": {}, "attention": {}}
+    for label, spec in handle_specs("matmul", BF16_RUNS, torch.bfloat16):
+        M, N, K = spec["M"], spec["N"], spec["K"]
+        a = torch.randn(M, K, generator=gen, device=dev).to(bf16)
+        b = torch.randn(K, N, generator=gen, device=dev).to(bf16)
+        point = served.get(label.split()[0], {}).get("matmul") or MM_DEFAULT
+        lib_name = "torch.mm(out_dtype=float32)"
+        row = {"ms": device_ms(lambda: matmul_cuda(a, b, point), reps=5),
+               "default_ms": device_ms(lambda: matmul_cuda(a, b, MM_DEFAULT), reps=5),
+               "plain_ms": device_ms(lambda: matmul_plain(a, b, point), reps=5),
+               "library_ms": device_ms(lambda: torch.mm(a, b, out_dtype=torch.float32),
+                                       reps=5), "library": lib_name,
+               "point": point, "shape": [M, N, K]}
+        row["bound_ms"], row["bound_by"] = bound(2.0 * M * N * K,
+                                                 2.0 * (M * K + K * N) + 4.0 * M * N, bf16=True)
+        out["matmul"][label] = row
+        print(f"matmul bf16, {label} {row['shape']} (M, N, K): {row['ms']:.4f} ms at {point}, "
+              f"{row['default_ms']:.4f} at DEFAULT_POINT; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}, bf16 tensor cores); plain {row['plain_ms']:.4f} ms; "
+              f"{lib_name} {row['library_ms']:.4f} ms")
+        del a, b
+    for label, spec in handle_specs("attention", BF16_RUNS, torch.bfloat16):
+        B, T, H, Hk, Dh = spec["B"], spec["Tq"], spec["H"], spec["Hk"], spec["Dh"]
+        q = torch.randn(B, T, H, Dh, generator=gen, device=dev).to(bf16)
+        k = torch.randn(B, T, Hk, Dh, generator=gen, device=dev).to(bf16)
+        v = torch.randn(B, T, Hk, Dh, generator=gen, device=dev).to(bf16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        step_point = {"block_q": min(512, T), "block_kv": min(512, T)}
+        point = served.get(label.split()[0], {}).get("attention") or step_point
+        row = {"ms": device_ms(lambda: flash_attention_cuda(q, k, v, point)),
+               "untuned_ms": device_ms(lambda: flash_attention_cuda(q, k, v, step_point)),
+               "plain_ms": device_ms(lambda: flash_attention_plain(q, k, v, point)),
+               "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)),
+               "library": "scaled_dot_product_attention (bf16)",
+               "point": point, "untuned_point": step_point, "shape": [B, T, H, Hk, Dh]}
+        row["bound_ms"], row["bound_by"] = bound(
+            4.0 * B * H * T * T * Dh * 0.5, 2.0 * (2 * B * T * H + 2 * B * T * Hk) * Dh,
+            bf16=True)
+        out["attention"][label] = row
+        print(f"attention bf16, {label} {row['shape']} (B, T, H, Hk, Dh): {row['ms']:.4f} ms "
+              f"at {point}, {row['untuned_ms']:.4f} at {step_point}; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 tensor cores); plain "
+              f"{row['plain_ms']:.4f} ms; SDPA {row['library_ms']:.4f} ms (graph replays)")
+        del q, k, v, qt, kt, vt
+    return out
+
+
 def time_euclid(rows, dev, gen) -> dict:
     """euclid at each Table 3 input (M = 1024 centres), at DEFAULT_POINT and
     at the point that served at the end of the O-AT run, beside the plain
@@ -2941,6 +3310,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         save()
 
+    # -- 3e. serving in bf16: deepseek-7b and qwen3-moe whole --------------
+    bf16_report = None
+    if "bf16" in only:
+        bf16_report = report["bf16"] = run_bf16(dev)
+        torch.cuda.empty_cache()
+        save()
+
     hold_dist_traces(dist_procs, False)
 
     # -- 4. each kernel against its plain version ---------------------------
@@ -2989,6 +3365,7 @@ def main(argv=None) -> int:
     if "time" in only:
         report["euclid_times"] = time_euclid(rows, dev, gen)
         report["times"] = time_lm(libs, dev, gen, serve_report)
+        report["times_bf16"] = time_bf16(dev, gen, bf16_report)
         save()
 
     if only != set(PHASES):
@@ -3090,7 +3467,28 @@ def main(argv=None) -> int:
             grad = checks[f"{key}_grad"]
             entry["grad_max_abs_err"] = grad["max_abs_err"]
             entry["grad_checks"] = grad["checks"]
+        entry["bf16_launches"] = bf16_report["launches_bf16"][name]
         kernels.append(entry)
+    # the bf16 input class: launches from the bf16 phase's run, times at
+    # deepseek-7b's handle shape, every shape in by_shape
+    for name, key, src, tpu, tol in (
+            ("matmul_bf16", "matmul", MATMUL_SRC, MATMUL_TPU, MATMUL_TOL),
+            ("flash_attention_bf16", "attention", ATTENTION_SRC, ATTENTION_TPU,
+             ATTENTION_BF16_TOL)):
+        rows_bf16, chk = report["times_bf16"][key], checks[key]["bf16"]
+        t = next(iter(rows_bf16.values()))
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": bf16_report["launches_bf16"][name.removesuffix("_bf16")],
+            "max_abs_err": chk["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t["library"], "point": t["point"],
+            "shape": t["shape"], "checks": chk["checks"], "tolerance": tol,
+            "tol_used": chk["tol_used"], "by_shape": rows_bf16,
+            "controls_tol_used": {k: v for k, v in chk.items()
+                                  if k.startswith(("fp8_control", "unblocked"))},
+            "launches_by_arch": {a: r["launches_by_dtype"] for a, r in
+                                 bf16_report["runs"].items()}})
     report["kernels"] = kernels
     save()
     print(card)

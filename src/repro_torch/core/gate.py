@@ -126,11 +126,14 @@ class VariantGate:
         if len(g) != len(w):
             return False, f"output arity {len(g)} != oracle arity {len(w)}"
         for i, (a, b) in enumerate(zip(g, w)):
-            # numpy cannot read device memory: bring tensors to the host
+            # numpy cannot read device memory, nor bf16: bring tensors to
+            # the host, floating ones in fp64
             if isinstance(a, torch.Tensor):
                 a = a.detach().cpu()
+                a = a.double() if a.is_floating_point() else a
             if isinstance(b, torch.Tensor):
                 b = b.detach().cpu()
+                b = b.double() if b.is_floating_point() else b
             try:
                 aa = np.asarray(a).astype(np.float64)
                 bb = np.asarray(b).astype(np.float64)

@@ -22,7 +22,22 @@
 //     a source size of 0..16 (0..4) bytes whose remainder is zero-filled:
 //     masked edges read zeros without a branch around the copy;
 //   * cp_async_commit and cp_async_wait(n), n in 0..2 dispatched through
-//     a switch, since wait_group takes an immediate.
+//     a switch, since wait_group takes an immediate;
+//   * mma_bf16_m16n8k16: D += A(16x16) B(16x8), bf16 in, fp32 accumulators
+//     (mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32). Each register
+//     holds two bf16 values, the lower index in the low 16 bits; with g
+//     and q as above,
+//       a[0] = A[g][2q, 2q+1],   a[1] = A[g+8][2q, 2q+1],
+//       a[2] = A[g][2q+8, 2q+9], a[3] = A[g+8][2q+8, 2q+9]
+//       b[0] = B[2q, 2q+1][g],   b[1] = B[2q+8, 2q+9][g]
+//       d as for m16n8k8. A bf16 x bf16 product is exact in fp32;
+//   * pack_bf16x2(lo, hi): two fp32 values rounded to bf16 (to nearest,
+//     ties to even) in one register, lo in the low half
+//     (cvt.rn.bf16x2.f32);
+//   * pack_u16x2(lo, hi): two 16-bit values (bf16 bits) in one register,
+//     lo in the low half: an operand pair whose two values are not
+//     adjacent in memory (the k pairs of a B fragment read from an
+//     n-contiguous tile).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -94,6 +109,26 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
     case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
     default: asm volatile("cp.async.wait_group 0;\n" ::); break;
   }
+}
+
+__device__ __forceinline__ void mma_bf16_m16n8k16(float d[4], const uint32_t a[4],
+                                                  const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  // the first source goes to the upper half
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t pack_u16x2(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
 }
 
 }  // namespace sm90

@@ -14,13 +14,16 @@ Layout: q (B, Tq, H, Dh), k/v (B, Tkv, Hk, Dh) with H = G·Hk, read in
 place (no transposed copies); the kv head of q head h is h // G.
 
 The kernel is CUDA C++ (``csrc/attention.cuh``; its header comment is
-the design note): 3xTF32 products on the tensor cores (``mma.sync``,
-fp32 accuracy), K and V staged by ``cp.async``, a per-warp causal skip.
-The head dim, ``block_q`` and ``block_kv`` are template parameters, one
-instantiation per combination (Dh 16, 64 and 128, the head dims of the
-reduced configs, of the 64-wide families and of deepseek-7b: 45), all
-built once into one shared library; the launcher picks by q's last dim
-and raises at a Dh it has no instantiation for. A block clamped to the sequence, as
+the design note): on the tensor cores (``mma.sync``), 3xTF32 products
+for fp32 inputs (fp32 accuracy) and bf16 products for bf16 inputs (P
+rounded to bf16 before P·V and the output written in bf16, as the
+reference's kernel does at bf16), K and V staged by ``cp.async``, a
+per-warp causal skip. The input type, head dim, ``block_q`` and
+``block_kv`` are template parameters, one instantiation per combination
+(Dh 16, 64 and 128, the head dims of the reduced configs, of the
+64-wide families and of deepseek-7b: 45 a type), all built once into
+one shared library; the launcher picks by q's type and last dim and
+raises at a type or Dh it has no instantiation for. A block clamped to the sequence, as
 ``flash_attention_pallas`` clamps ``min(block, T)``, is served by the
 smallest instantiated block that covers the sequence: one tile either
 way. A block below the smallest instantiation (``block_q`` 64 or 32 of
@@ -63,11 +66,16 @@ BLOCK_Q = (128, 256, 512)
 BLOCK_KV = (64, 128, 256, 512, 1024)
 #: the head dims the library is instantiated for
 HEAD_DIMS = (16, 64, 128)
+#: input type -> symbol suffix (fp32's symbols carry none)
+_TYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
-def stage_bytes(Dh: int) -> int:
+def stage_bytes(Dh: int, dtype_bytes: int = 4) -> int:
     """Shared memory of one ring stage (csrc/attention.cuh
-    ``stage_bytes<DH>``): 32 keys of K and of V as copied."""
+    ``stage_bytes<DH>``): 32 keys of K and of V as copied; bf16 rows are
+    padded to Dh + 8 values (``stage_bytes_bf16<DH>``)."""
+    if dtype_bytes == 2:
+        return 2 * 2 * 32 * (Dh + 8)
     return 4 * 2 * 32 * Dh
 
 
@@ -77,13 +85,16 @@ def split_bytes(Dh: int) -> int:
     return 8 * 2 * 32 * (Dh + 4)
 
 
-def smem_bytes(point: Point, Dh: int) -> int:
-    """Shared memory of one block at ``point`` and head dim ``Dh``:
-    ``lookahead + 1`` stages and the split slice."""
-    return (int(point.get("lookahead", 1)) + 1) * stage_bytes(Dh) + split_bytes(Dh)
+def smem_bytes(point: Point, Dh: int, dtype_bytes: int = 4) -> int:
+    """Shared memory of one block at ``point``, head dim ``Dh`` and inputs
+    of ``dtype_bytes``: ``lookahead + 1`` stages, and for fp32 the split
+    slice."""
+    stages = (int(point.get("lookahead", 1)) + 1) * stage_bytes(Dh, dtype_bytes)
+    return stages if dtype_bytes == 2 else stages + split_bytes(Dh)
 
 
-#: the largest footprint (Dh 128: three stages and the split slice, 162 kB)
+#: the largest footprint (fp32 at Dh 128: three stages and the split
+#: slice, 162 kB; bf16's largest is 51 kB)
 SMEM_BYTES = smem_bytes({"lookahead": 2}, max(HEAD_DIMS))
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -107,22 +118,28 @@ def _block(value: int, extent: int, options: tuple[int, ...]) -> int:
         f"instantiated blocks are {options}")
 
 
-def symbol(point: Point, Tq: int, Tkv: int, Dh: int) -> str:
+def symbol(point: Point, Tq: int, Tkv: int, Dh: int,
+           dtype: torch.dtype = torch.float32) -> str:
     """Exported C name of the instantiation serving ``point`` at these
-    sequence lengths and head dim."""
+    sequence lengths, head dim and input type."""
     if Dh not in HEAD_DIMS:
         raise KeyError(
             f"no attention instantiation for head dim {Dh}: instantiated head "
             f"dims are {HEAD_DIMS}")
+    if dtype not in _TYPES:
+        raise KeyError(f"no attention instantiation for {dtype}: instantiated "
+                       f"input types are {tuple(_TYPES)}")
     bq = _block(point["block_q"], Tq, BLOCK_Q)
     bkv = _block(point["block_kv"], Tkv, BLOCK_KV)
-    return f"attention_dh{Dh}_bq{bq}_bkv{bkv}"
+    return f"attention_dh{Dh}_bq{bq}_bkv{bkv}{_TYPES[dtype]}"
 
 
 def instantiations() -> dict[str, str]:
-    """Symbol -> instantiation line of every (Dh, block_q, block_kv)."""
-    return {f"attention_dh{dh}_bq{bq}_bkv{bkv}":
-            f"ATTENTION_INSTANTIATE({dh}, {bq}, {bkv})"
+    """Symbol -> instantiation line of every (type, Dh, block_q,
+    block_kv)."""
+    return {f"attention_dh{dh}_bq{bq}_bkv{bkv}{sfx}":
+            f"ATTENTION_INSTANTIATE{sfx.upper()}({dh}, {bq}, {bkv})"
+            for sfx in _TYPES.values()
             for dh in HEAD_DIMS for bq in BLOCK_Q for bkv in BLOCK_KV}
 
 
@@ -139,7 +156,7 @@ def build_kernels(device: "torch.device | str | None" = None) -> KernelLibrary:
 def _library() -> KernelLibrary:
     # memoised: the wrapper asks for it on every launch given no library
     return load_family("attention", CSRC, "attention.cuh", instantiations(),
-                       _ARGTYPES, n_units=6)
+                       _ARGTYPES, n_units=12)
 
 
 def flash_attention_cuda(
@@ -148,22 +165,23 @@ def flash_attention_cuda(
     lib: KernelLibrary | None = None,
 ) -> torch.Tensor:
     """Blockwise causal attention: q (B, Tq, H, Dh), k/v (B, Tkv, Hk, Dh)
-    -> (B, Tq, H, Dh) in q's type.
+    -> (B, Tq, H, Dh) in q's type (fp32 or bf16, all three of one type).
 
     On CUDA tensors: checks the arguments, launches the instantiation for
-    ``point`` and q's head dim on the current stream, checks the launch
-    status and counts the launch in ``flash_attention_cuda.launches`` (and
-    ``.launches_by_head_dim``). On CPU tensors: the
-    plain version.
+    ``point``, q's type and head dim on the current stream, checks the
+    launch status and counts the launch in ``flash_attention_cuda.launches``
+    (and by type and head dim in ``.launches_by_dtype``). On CPU tensors:
+    the plain version.
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, point, causal=causal, scale=scale,
                                      q_offset=q_offset)
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q on {q.device} but k on {k.device}, v on {v.device}")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
+    if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention_cuda takes float32, got {q.dtype}, {k.dtype}, {v.dtype}")
+            f"flash_attention_cuda takes float32 or bfloat16 q, k and v of one "
+            f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"expected q (B, Tq, H, Dh), k and v (B, Tkv, Hk, Dh), got "
@@ -188,18 +206,19 @@ def flash_attention_cuda(
     scale = float(scale if scale is not None else Dh ** -0.5)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    lib.launch(symbol(point, Tq, Tkv, Dh), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               out.data_ptr(), B, Tq, Tkv, H, Hk, int(bool(causal)), int(q_offset),
-               scale, lookahead, stream)
+    lib.launch(symbol(point, Tq, Tkv, Dh, q.dtype), q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), out.data_ptr(), B, Tq, Tkv, H, Hk, int(bool(causal)),
+               int(q_offset), scale, lookahead, stream)
     flash_attention_cuda.launches += 1
-    by_dh = flash_attention_cuda.launches_by_head_dim
-    by_dh[Dh] = by_dh.get(Dh, 0) + 1
+    by_type = flash_attention_cuda.launches_by_dtype.setdefault(
+        str(q.dtype).removeprefix("torch."), {})
+    by_type[Dh] = by_type.get(Dh, 0) + 1
     return out
 
 
 flash_attention_cuda.launches = 0
-#: the launches above, split by head dim
-flash_attention_cuda.launches_by_head_dim = {}
+#: the launches above, split by input type ("float32", "bfloat16"), then head dim
+flash_attention_cuda.launches_by_dtype = {}
 
 
 def flash_attention_plain(

@@ -1,10 +1,12 @@
 // Causal flash attention (blockwise online softmax) on Hopper, GQA-aware,
-// on the tensor cores in 3xTF32.
+// on the tensor cores: fp32 inputs in 3xTF32, bf16 inputs in bf16
+// (`flash_kernel_bf16`, below the fp32 kernel, has its own note).
 //
 //   out[b, t, h, :] = softmax_s(q[b, t, h, :] . k[b, s, h / G, :] * scale
 //                               + mask) @ v[b, :, h / G, :]
 //
-//   q: (B, Tq, H, Dh), k, v: (B, Tkv, Hk, Dh), out like q; fp32; G = H / Hk;
+//   q: (B, Tq, H, Dh), k, v: (B, Tkv, Hk, Dh), out like q; fp32 or bf16
+//   (all four of one type); G = H / Hk;
 //   Dh a template parameter (a multiple of 8; the library instantiates
 //   16, 64 and 128, the head dims of the configs the port serves).
 //   The Pallas kernel's BlockSpecs take the whole Dh, so it runs at any
@@ -111,9 +113,75 @@ template <int DH>
 __host__ __device__ constexpr size_t stage_bytes() { return sizeof(float) * stage_floats<DH>(); }
 template <int DH>
 __host__ __device__ constexpr size_t split_bytes() { return sizeof(uint2) * 2 * kKs * split_ld<DH>(); }
+// bf16 operands travel as their 16-bit patterns; a bf16 stage holds 32
+// keys of K and of V as copied, rows padded to DH + 8 values (no split
+// slice: the fragments are read from the stage itself)
+using bf16_t = uint16_t;
 template <int DH>
+__host__ __device__ constexpr int ld_bf16() { return DH + 8; }
+template <int DH>
+__host__ __device__ constexpr size_t stage_bytes_bf16() {
+  return sizeof(bf16_t) * 2 * kKs * ld_bf16<DH>();
+}
+
+template <int DH, class T = float>
 __host__ __device__ constexpr size_t smem_bytes(int lookahead) {
-  return (size_t)(lookahead + 1) * stage_bytes<DH>() + split_bytes<DH>();
+  if constexpr (sizeof(T) == 2) {
+    return (size_t)(lookahead + 1) * stage_bytes_bf16<DH>();
+  } else {
+    return (size_t)(lookahead + 1) * stage_bytes<DH>() + split_bytes<DH>();
+  }
+}
+
+// Slice s's 16 x 32 score fragments of a warp whose rows sit at
+// positions qpos0 and qpos0 + 8: masked (causal, and keys past Tkv, to
+// -1e30) and scaled, then the online softmax per row: the running max m
+// and sum l updated (quad shuffles), the scores replaced by
+// p = expf(score - m) in fp32, the accumulator o rescaled. Both kernels'.
+template <int NV>
+__device__ __forceinline__ void online_softmax(float (&sc)[kKs / 8][4], float (&m)[2],
+                                               float (&l)[2], float (&o)[NV][4], int s,
+                                               int qpos0, int qd, int Tkv, int causal,
+                                               float scale) {
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int nf = 0; nf < kKs / 8; ++nf)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int kpos = s * kKs + nf * 8 + 2 * qd + (i & 1);
+      const int qpos = qpos0 + 8 * (i >> 1);
+      float x = sc[nf][i] * scale;
+      if ((causal && qpos < kpos) || kpos >= Tkv) x = kNegInf;
+      sc[nf][i] = x;
+      mx[i >> 1] = fmaxf(mx[i >> 1], x);
+    }
+  float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = expf(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int nf = 0; nf < kKs / 8; ++nf)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = expf(sc[nf][i] - m[i >> 1]);
+      sc[nf][i] = p;
+      sum[i >> 1] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = l[r] * alpha[r] + sum[r];
+  }
+#pragma unroll
+  for (int nv = 0; nv < NV; ++nv)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[nv][i] *= alpha[i >> 1];
 }
 
 // x[0..3] as four (big, small) TF32 pairs at dst[0..3]
@@ -260,45 +328,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
 
       // mask, scale, and the online softmax per row (rows g and g + 8)
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int nf = 0; nf < kKs / 8; ++nf)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int kpos = s * kKs + nf * 8 + 2 * qd + (i & 1);
-          const int qpos = q_offset + r0 + g + 8 * (i >> 1);
-          float x = sc[nf][i] * scale;
-          if ((causal && qpos < kpos) || kpos >= Tkv) x = kNegInf;
-          sc[nf][i] = x;
-          mx[i >> 1] = fmaxf(mx[i >> 1], x);
-        }
-      float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        alpha[r] = expf(m[r] - m_new);
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int nf = 0; nf < kKs / 8; ++nf)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = expf(sc[nf][i] - m[i >> 1]);
-          sc[nf][i] = p;
-          sum[i >> 1] += p;
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-        l[r] = l[r] * alpha[r] + sum[r];
-      }
-#pragma unroll
-      for (int nv = 0; nv < kDh / 8; ++nv)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) o[nv][i] *= alpha[i >> 1];
+      online_softmax(sc, m, l, o, s, q_offset + r0 + g, qd, Tkv, causal, scale);
 
       // O += P V: P's accumulator fragments become A fragments by
       // shuffles (A[g][c] sits in lane 4g + c/2, register c % 2)
@@ -346,56 +376,236 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// The bf16 input class: q, k, v and out bf16, everything else as above
+// (fp32 scores, masks, running max and sum, expf, fp32 accumulators).
+// One m16n8k16 bf16 product (sm90::mma_bf16_m16n8k16, exact products)
+// for S = Q K^T and one for P V: no split, no split slice. P is rounded
+// to bf16 (nearest even) before P V, as the reference's
+// `p.astype(v.dtype)`; the row sums take the unrounded p, as its
+// `jnp.sum(p)` does; the output is acc / l rounded to bf16.
+//   * a warp's q rows are A fragments in registers (Dh / 4 registers a
+//     thread: two bf16 values each);
+//   * K and V slices are staged as bf16 by cp.async (16-byte copies;
+//     plain 2-byte loads and stores where k or v is not 16-byte aligned)
+//     into a ring of `lookahead + 1` stages of 128 * (Dh + 8) bytes, rows
+//     padded to Dh + 8 values: the K fragment registers are one 32-bit
+//     load of two d-adjacent values each, conflict-free;
+//   * S's accumulator fragments are already P's A fragments (keys 2q,
+//     2q + 1 and 2q + 8, 2q + 9 of a 16-key step): packed, no shuffles;
+//   * V is (keys, Dh), Dh contiguous, and the .col B fragment of P V
+//     wants key-adjacent pairs: two 16-bit reads packed per register
+//     (sm90::pack_u16x2), not ldmatrix.trans;
+//   * one __syncthreads a slice (two at lookahead 0).
+// What bounds it: at deepseek-7b's prefill (B 4, T 512, H 32, Dh 128,
+// causal) 8.6 GFLOP at 989 TFLOP/s (0.0087 ms) against 67 MB (0.020 ms):
+// bytes; at qwen3-moe's (Dh 64, 32 heads over 4) 0.0056 ms, bytes.
+template <int DH, int BQ, int BKV, int LA>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel_bf16(const bf16_t* __restrict__ q, const bf16_t* __restrict__ k,
+                  const bf16_t* __restrict__ v, bf16_t* __restrict__ out, int B, int Tq,
+                  int Tkv, int H, int Hk, int causal, int q_offset, float scale) {
+  static_assert(BQ % kIterRows == 0 && BKV % kKs == 0,
+                "blocks are multiples of the 128-row iteration and the 32-key slice");
+  static_assert(DH % 16 == 0, "the head dim is a multiple of the k16 step");
+  constexpr int kLd = ld_bf16<DH>();
+  constexpr int kStage = 2 * kKs * kLd;  // elements of one ring stage
+  extern __shared__ __align__(16) float smem[];
+  bf16_t* const sm = reinterpret_cast<bf16_t*>(smem);
+
+  const int n_q = (Tq + BQ - 1) / BQ;
+  const int iq = blockIdx.x % n_q;
+  const int bh = blockIdx.x / n_q;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hk);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, qd = lane % 4;
+  constexpr int la = LA, stages = LA + 1;
+  const int n_kv = (Tkv + kKs - 1) / kKs;
+  const size_t q_stride = (size_t)H * DH;
+  const size_t kv_stride = (size_t)Hk * DH;
+  const bool vec = (((uintptr_t)k | (uintptr_t)v) & 15) == 0;
+  auto visible = [&](int last) {
+    return causal ? min(n_kv, (q_offset + last) / kKs + 1) : n_kv;
+  };
+
+  auto issue = [&](int s, int slot) {
+    bf16_t* ks = sm + (size_t)slot * kStage;
+    bf16_t* vs = ks + kKs * kLd;
+    const int s0 = s * kKs;
+    if (vec) {
+      for (int e = tid; e < kKs * (DH / 8); e += kThreads) {
+        const int r = e / (DH / 8), d = (e % (DH / 8)) * 8;
+        const bool in = s0 + r < Tkv;
+        const size_t off = ((size_t)b * Tkv + s0 + r) * kv_stride + (size_t)hk * DH + d;
+        sm90::cp_async16(ks + r * kLd + d, in ? k + off : k, in ? 16 : 0);
+        sm90::cp_async16(vs + r * kLd + d, in ? v + off : v, in ? 16 : 0);
+      }
+    } else {
+      for (int e = tid; e < kKs * DH; e += kThreads) {
+        const int r = e / DH, d = e % DH;
+        const bool in = s0 + r < Tkv;
+        const size_t off = ((size_t)b * Tkv + s0 + r) * kv_stride + (size_t)hk * DH + d;
+        ks[r * kLd + d] = in ? k[off] : (bf16_t)0;
+        vs[r * kLd + d] = in ? v[off] : (bf16_t)0;
+      }
+    }
+  };
+  auto ld32 = [](const bf16_t* p) { return *reinterpret_cast<const uint32_t*>(p); };
+
+  const int tile_end = min(iq * BQ + BQ, Tq);
+#pragma unroll 1
+  for (int q0 = iq * BQ; q0 < tile_end; q0 += kIterRows) {
+    const int r0 = q0 + warp * kRows;  // this warp's first q row
+    const int n_warp = r0 < Tq ? visible(min(r0 + kRows, Tq) - 1) : 0;
+    const int n_slices = visible(min(q0 + kIterRows, Tq) - 1);
+
+    // this warp's q rows as A fragments, one per 16-wide d step
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int kd = 0; kd < DH / 16; ++kd)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = r0 + g + 8 * (i & 1), d = kd * 16 + 2 * qd + 8 * (i >> 1);
+        const bf16_t* src = q + ((size_t)b * Tq + t) * q_stride + (size_t)h * DH + d;
+        qa[kd][i] = t < Tq ? sm90::pack_u16x2(src[0], src[1]) : 0u;
+      }
+    float o[DH / 8][4];
+#pragma unroll
+    for (int nv = 0; nv < DH / 8; ++nv)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o[nv][i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+    __syncthreads();  // the previous iteration is done with every stage
+    for (int s = 0; s < la; ++s) {
+      if (s < n_slices) issue(s, s);
+      sm90::cp_async_commit();
+    }
+#pragma unroll 1
+    for (int s = 0; s < n_slices; ++s) {
+      if constexpr (la == 0) {
+        __syncthreads();  // every warp is done with the only stage
+        issue(s, 0);
+        sm90::cp_async_commit();
+      }
+      sm90::cp_async_wait(la == 0 ? 0 : la - 1);
+      __syncthreads();  // slice s has landed; slot (s - 1) % stages is free
+      if constexpr (la > 0) {
+        if (s + la < n_slices) issue(s + la, (s + la) % stages);
+        sm90::cp_async_commit();
+      }
+      if (s >= n_warp) continue;  // hidden from all of this warp's rows
+      const bf16_t* ks = sm + (size_t)(s % stages) * kStage;
+      const bf16_t* vs = ks + kKs * kLd;
+
+      // scores S = Q K^T: 16 rows x 32 keys, 4 fragments
+      float sc[kKs / 8][4];
+#pragma unroll
+      for (int nf = 0; nf < kKs / 8; ++nf)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[nf][i] = 0.f;
+#pragma unroll
+      for (int kd = 0; kd < DH / 16; ++kd)
+#pragma unroll
+        for (int nf = 0; nf < kKs / 8; ++nf) {
+          const bf16_t* kr = ks + (nf * 8 + g) * kLd + kd * 16 + 2 * qd;
+          const uint32_t kb[2] = {ld32(kr), ld32(kr + 8)};
+          sm90::mma_bf16_m16n8k16(sc[nf], qa[kd], kb);
+        }
+
+      online_softmax(sc, m, l, o, s, q_offset + r0 + g, qd, Tkv, causal, scale);
+
+      // O += P V, 16 keys a step: P rounded to bf16 in the A layout
+#pragma unroll
+      for (int kk = 0; kk < kKs / 16; ++kk) {
+        const uint32_t pa[4] = {sm90::pack_bf16x2(sc[2 * kk][0], sc[2 * kk][1]),
+                                sm90::pack_bf16x2(sc[2 * kk][2], sc[2 * kk][3]),
+                                sm90::pack_bf16x2(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+                                sm90::pack_bf16x2(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+        for (int nv = 0; nv < DH / 8; ++nv) {
+          const bf16_t* vr = vs + (kk * 16 + 2 * qd) * kLd + nv * 8 + g;
+          const uint32_t vb[2] = {sm90::pack_u16x2(vr[0], vr[kLd]),
+                                  sm90::pack_u16x2(vr[8 * kLd], vr[9 * kLd])};
+          sm90::mma_bf16_m16n8k16(o[nv], pa, vb);
+        }
+      }
+    }
+    sm90::cp_async_wait(0);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r0 + g + 8 * r;
+      if (t >= Tq) continue;
+      const float lr = fmaxf(l[r], 1e-30f);
+      bf16_t* dst = out + ((size_t)b * Tq + t) * q_stride + (size_t)h * DH + 2 * qd;
+#pragma unroll
+      for (int nv = 0; nv < DH / 8; ++nv)
+        *reinterpret_cast<uint32_t*>(dst + nv * 8) =
+            sm90::pack_bf16x2(o[nv][2 * r] / lr, o[nv][2 * r + 1] / lr);
+    }
+  }
+}
+
+// the kernel of one instantiation, by operand type
+template <int DH, int BQ, int BKV, int LA>
+constexpr auto kernel_for(const float*) { return flash_kernel<DH, BQ, BKV, LA>; }
+template <int DH, int BQ, int BKV, int LA>
+constexpr auto kernel_for(const bf16_t*) { return flash_kernel_bf16<DH, BQ, BKV, LA>; }
+
 // Host launcher for one instantiation: on `stream`, allocates nothing,
 // does not synchronise; returns the launch status (cudaGetLastError),
 // which the Python wrapper turns into an exception.
-template <int DH, int BQ, int BKV, int LA>
-int launch_depth(const float* q, const float* k, const float* v, float* out, int B,
+template <class T, int DH, int BQ, int BKV, int LA>
+int launch_depth(const T* q, const T* k, const T* v, T* out, int B,
                  int Tq, int Tkv, int H, int Hk, int causal, int q_offset, float scale,
                  void* stream) {
-  const size_t smem = smem_bytes<DH>(LA);
+  const size_t smem = smem_bytes<DH, T>(LA);
+  const auto kernel = kernel_for<DH, BQ, BKV, LA>(q);
   // above 48 KB, dynamic shared memory must be opted in to; the attribute
   // belongs to the current device, so it is set on every launch
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_kernel<DH, BQ, BKV, LA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (long long)B * H * ((Tq + BQ - 1) / BQ);
   if (blocks <= 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  flash_kernel<DH, BQ, BKV, LA><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
       q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale);
   return (int)cudaGetLastError();
 }
 
-template <int DH, int BQ, int BKV>
-int launch(const float* q, const float* k, const float* v, float* out, int B,
+template <class T, int DH, int BQ, int BKV>
+int launch(const T* q, const T* k, const T* v, T* out, int B,
            int Tq, int Tkv, int H, int Hk, int causal, int q_offset, float scale,
            int lookahead, void* stream) {
   switch (lookahead) {
-    case 0: return launch_depth<DH, BQ, BKV, 0>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
-    case 1: return launch_depth<DH, BQ, BKV, 1>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
-    case 2: return launch_depth<DH, BQ, BKV, 2>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
+    case 0: return launch_depth<T, DH, BQ, BKV, 0>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
+    case 1: return launch_depth<T, DH, BQ, BKV, 1>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
+    case 2: return launch_depth<T, DH, BQ, BKV, 2>(q, k, v, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace attention
 
-// Two exported C symbols per instantiation:
-//   int attention_dh<DH>_bq<BQ>_bkv<BKV>(q, k, v, out, B, Tq, Tkv, H, Hk,
-//                                        causal, q_offset, scale, lookahead,
-//                                        stream)
-//   long long attention_dh<DH>_bq<BQ>_bkv<BKV>_smem(lookahead): the dynamic
-//     shared memory of one block, as the launcher asks for it
-#define ATTENTION_INSTANTIATE(DH, BQ, BKV)                                              \
-  extern "C" int attention_dh##DH##_bq##BQ##_bkv##BKV(                                  \
-      const float* q, const float* k, const float* v, float* out, int B, int Tq,        \
-      int Tkv, int H, int Hk, int causal, int q_offset, float scale, int lookahead,     \
-      void* stream) {                                                                   \
-    return attention::launch<DH, BQ, BKV>(q, k, v, out, B, Tq, Tkv, H, Hk, causal,      \
-                                          q_offset, scale, lookahead, stream);          \
+// Two exported C symbols per instantiation and type (fp32 without a
+// suffix, bf16 q, k, v and out with `_bf16`):
+//   int attention_dh<DH>_bq<BQ>_bkv<BKV>[_bf16](q, k, v, out, B, Tq, Tkv,
+//                                 H, Hk, causal, q_offset, scale,
+//                                 lookahead, stream)
+//   long long attention_dh<DH>_bq<BQ>_bkv<BKV>[_bf16]_smem(lookahead): the
+//     dynamic shared memory of one block, as the launcher asks for it
+#define ATTENTION_INSTANTIATE_T(DH, BQ, BKV, T, SFX)                                    \
+  extern "C" int attention_dh##DH##_bq##BQ##_bkv##BKV##SFX(                             \
+      const T* q, const T* k, const T* v, T* out, int B, int Tq, int Tkv, int H,        \
+      int Hk, int causal, int q_offset, float scale, int lookahead, void* stream) {     \
+    return attention::launch<T, DH, BQ, BKV>(q, k, v, out, B, Tq, Tkv, H, Hk, causal,   \
+                                             q_offset, scale, lookahead, stream);       \
   }                                                                                     \
-  extern "C" long long attention_dh##DH##_bq##BQ##_bkv##BKV##_smem(int lookahead) {     \
-    return (long long)attention::smem_bytes<DH>(lookahead);                             \
+  extern "C" long long attention_dh##DH##_bq##BQ##_bkv##BKV##SFX##_smem(int lookahead) { \
+    return (long long)attention::smem_bytes<DH, T>(lookahead);                          \
   }
+#define ATTENTION_INSTANTIATE(DH, BQ, BKV) ATTENTION_INSTANTIATE_T(DH, BQ, BKV, float, )
+#define ATTENTION_INSTANTIATE_BF16(DH, BQ, BKV) \
+  ATTENTION_INSTANTIATE_T(DH, BQ, BKV, attention::bf16_t, _bf16)

@@ -16,11 +16,12 @@ CUDA device and its plain version on the CPU.
 profile) the validator is the TPU kernel's VMEM footprint: its q, k, v
 and score blocks and the accumulators. On a CUDA device
 (``hopper=True``) it checks what the Hopper kernel holds in shared
-memory: its ring of ``lookahead + 1`` stages of 32 keys of K and V and
-the split slice, whatever the blocks
+memory: its ring of ``lookahead + 1`` stages of 32 keys of K and V and,
+for fp32 inputs, the split slice, whatever the blocks
 (:func:`~repro_torch.kernels.attention.attention.smem_bytes`: 98–162 kB at
-Dh 128, 50–82 kB at 64, 14–22 kB at 16), at the head dims the library is
-instantiated for (16, 64, 128); any other Dh has no valid point.
+Dh 128, 50–82 kB at 64, 14–22 kB at 16 in fp32; 17–51, 9–27 and 3–9 kB
+in bf16), at the head dims the library is instantiated for (16, 64,
+128); any other Dh has no valid point.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from repro_torch.kernels.attention.attention import (
     smem_bytes, symbol)
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.catalog import (
-    KernelDef, example_fill, spec_capacity_kb, spec_on_cuda)
+    KernelDef, example_fill, spec_capacity_kb, spec_on_cuda, torch_dtype)
 
 NEG_INF = -1e30
 
@@ -110,8 +111,10 @@ def flash_attention_torch(
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
+        # p rounded to v's type, the product in fp32 (the reference's
+        # preferred_element_type): bf16 x bf16 is exact in fp32
         acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqk,bhkd->bhgqd", p.to(vblk.dtype), vblk).to(torch.float32)
+            "bhgqk,bhkd->bhgqd", p.to(vblk.dtype).float(), vblk.float())
         return m_new, l, acc
 
     def q_step(qcur, iq):
@@ -191,7 +194,7 @@ def decode_attention(
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum(
-            "bhgqk,bkhd->bhgqd", p.to(vblk.dtype), vblk).to(torch.float32)
+            "bhgqk,bkhd->bhgqd", p.to(vblk.dtype).float(), vblk.float())
         m = m_new
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     # (B, Hk, G, Tq, Dh) -> (B, Tq, H, Dh)
@@ -205,7 +208,11 @@ def make_space(
     *,
     vmem_kb: int = TPU_V5E.vmem_kb,
     hopper: bool = False,
+    dtype_bytes: int = 4,
 ) -> TuningSpace:
+    """The reference's space. ``dtype_bytes`` (the inputs' element size)
+    counts only in the Hopper rule: the reference's validator counts
+    4-byte words whatever the type."""
     params = (
         Param("block_q", (128, 256, 512), phase=1, switch_rank=0),
         Param("block_kv", (128, 256, 512, 1024), phase=1, switch_rank=1),
@@ -215,7 +222,7 @@ def make_space(
 
     def validator(p: Point) -> bool:
         if hopper:
-            return Dh in HEAD_DIMS and smem_bytes(p, Dh) <= vmem_kb * 1024
+            return Dh in HEAD_DIMS and smem_bytes(p, Dh, dtype_bytes) <= vmem_kb * 1024
         bq, bkv = min(p["block_q"], Tq), min(p["block_kv"], Tkv)
         words = bq * Dh * 2 + 2 * bkv * Dh + bq * bkv + 2 * bq
         return words * 4 <= vmem_kb * 1024
@@ -256,15 +263,15 @@ def attention_cost_model(
 
 
 def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int,
-             Dh: int):
-    """The variant serving ``point``: the hand kernel on CUDA (its
-    instantiation resolved now, so a missing one raises here), the plain
-    version on the CPU."""
+             Dh: int, dtype: torch.dtype):
+    """The variant serving ``point`` for inputs of ``dtype``: the hand
+    kernel on CUDA (its instantiation resolved now, so a missing one
+    raises here), the plain version on the CPU."""
     pt = dict(point)
     lib = None
     if device.type == "cuda":
         lib = build_kernels(device)
-        lib.resolve(symbol(pt, Tq, Tkv, Dh))
+        lib.resolve(symbol(pt, Tq, Tkv, Dh, dtype))
 
     def fn(q, k, v):
         return flash_attention_cuda(q, k, v, pt, causal=causal, lib=lib)
@@ -276,7 +283,11 @@ def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int
 def _catalog_generate(point: Point, spec: dict[str, Any]):
     return _variant(point, resolve_device(spec.get("device")),
                     bool(spec.get("causal", True)), spec["Tq"], spec["Tkv"],
-                    spec["Dh"])
+                    spec["Dh"], _dtype(spec))
+
+
+def _dtype(spec: dict[str, Any]) -> torch.dtype:
+    return torch_dtype(spec.get("dtype", "float32"))
 
 
 def _extract_spec(q, k, v, **overrides: Any) -> dict[str, Any]:
@@ -310,7 +321,8 @@ KERNEL = KernelDef(
     name="attention",
     make_space=lambda spec: make_space(
         spec["Tq"], spec["Tkv"], spec["Dh"], vmem_kb=spec_capacity_kb(spec),
-        hopper=spec_on_cuda(spec)),
+        hopper=spec_on_cuda(spec),
+        dtype_bytes=_dtype(spec).itemsize),
     generate=_catalog_generate,
     cost_model=attention_cost_model,
     extract_spec=_extract_spec,

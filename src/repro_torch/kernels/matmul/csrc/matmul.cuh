@@ -1,6 +1,7 @@
-// Tiled fp32 matrix product on Hopper, on the tensor cores in 3xTF32.
+// Tiled matrix product on Hopper, on the tensor cores: fp32 operands in
+// 3xTF32, bf16 operands in bf16, fp32 accumulators and output either way.
 //
-//   C[M, N] = A[M, K] @ B[K, N]        A, B, C: fp32, row-major
+//   C[M, N] = A[M, K] @ B[K, N]        A, B: fp32 or bf16; C: fp32; row-major
 //
 // Replaces the Pallas TPU kernel `matmul_pallas` (`_mm_kernel` and
 // `_mm_kernel_noscratch`, src/repro/kernels/matmul/matmul.py). It computes
@@ -67,9 +68,27 @@
 // do not hide the chain from shared memory through the split to the
 // dependent mma.syncs (on an H100 80GB HBM3 at 700 W: 4.2 ms at the
 // up-projection at DEFAULT_POINT, cuBLAS fp32 3.6 ms).
+// bf16 operands (the kernel's element type T, bf16 bits as uint16_t):
+// the input class of `matmul_pallas` whose operands are bf16 and whose
+// output stays fp32 (`out_dtype=jnp.float32`). A bf16 x bf16 product is
+// exact in fp32, so there is no split: one mma.sync m16n8k16 bf16 product
+// (sm90::mma_bf16_m16n8k16) into the same fp32 accumulators, the same
+// tiles, passes, ring, partials, orders and ragged-edge zeros as above.
+// Its bound at the up-projection: 184.7 GFLOP at 989 TFLOP/s, 0.187 ms,
+// against 0.059 ms of bytes: operations. The slices are staged as bf16
+// (16-byte copies of 8 values; K or N not a multiple of 8, or an
+// unaligned operand, is staged by plain 2-byte loads and stores, which
+// the ring's barriers order as they order the copies). A rows are padded
+// to D + 8 values, so each A fragment register is one 32-bit load of
+// two k-adjacent values, conflict-free. B is n-contiguous, but the .col
+// B fragment wants k-adjacent pairs: each B register is two 16-bit
+// shared-memory reads, rows k and k + 1, packed (sm90::pack_u16x2), not
+// ldmatrix.trans; rows of 136 values keep the four k rows a warp reads
+// in different banks.
 // Left for later: wgmma (it takes TF32 only K-major from shared memory,
-// so B would need a transposing stage), TMA copies with mbarriers and a
-// producer warp, a persistent grid.
+// so B would need a transposing stage; bf16 B may be MN-major), TMA
+// copies with mbarriers and a producer warp, a persistent grid,
+// ldmatrix(.trans) for the bf16 fragments.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -80,9 +99,17 @@
 
 namespace matmul {
 
+// bf16 operands travel as their 16-bit patterns
+using bf16_t = uint16_t;
+
 constexpr int kThreads = 256;
 constexpr int kPN = 128;       // pass tile columns
-constexpr int kLdB = kPN + 8;
+constexpr int kLdB = kPN + 8;  // B rows, in elements of either type
+
+// A rows, in elements: D + 4 floats or D + 8 bf16 values (conflict-free
+// fragment loads either way)
+template <class T, int D>
+__host__ __device__ constexpr int ld_a() { return sizeof(T) == 4 ? D + 4 : D + 8; }
 
 // k depth of one staged slice: 64, or 32 where a sub-chunk is 32 deep
 // (block_k 128 at UNROLL 4); 64 halves the barriers of 32 and measured
@@ -96,22 +123,37 @@ __host__ __device__ constexpr int pass_m() { return UNROLL == 1 ? (BM < 128 ? BM
 
 // shared memory of one ring stage, in bytes (the tuning space's Hopper
 // capacity rule counts lookahead + 1 of them)
-template <int BM, int BK, int UNROLL>
+template <class T, int BM, int BK, int UNROLL>
 __host__ __device__ constexpr size_t stage_bytes() {
   constexpr int slice = slice_depth<BK, UNROLL>();
-  return sizeof(float) * ((size_t)pass_m<BM, UNROLL>() * (slice + 4) + (size_t)slice * kLdB);
+  return sizeof(T) * ((size_t)pass_m<BM, UNROLL>() * ld_a<T, slice>() + (size_t)slice * kLdB);
+}
+
+// one element of a slice where the 16-byte copy does not apply: a 4-byte
+// cp.async (zero past an edge) for fp32, a plain load and store for bf16
+__device__ __forceinline__ void copy_elem(float* dst, const float* src, bool in) {
+  sm90::cp_async4(dst, src, in ? 4 : 0);
+}
+__device__ __forceinline__ void copy_elem(bf16_t* dst, const bf16_t* src, bool in) {
+  *dst = in ? *src : (bf16_t)0;
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // One kernel per ring depth LA (= lookahead), picked by the launcher: the
 // ring's slot arithmetic and the wait_group count are compile-time
 // constants, and each depth gets its own register allocation.
-template <int BM, int BN, int BK, int UNROLL, int LA>
+template <class T, int BM, int BN, int BK, int UNROLL, int LA>
 __global__ void __launch_bounds__(kThreads, 1)
-matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
+matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
               float* __restrict__ c, int M, int N, int K, int order, int scratch) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   constexpr int PM = pass_m<BM, UNROLL>();
   constexpr int kSlice = slice_depth<BK, UNROLL>();
-  constexpr int kLdA = kSlice + 4;       // A rows padded: conflict-free fragments
+  constexpr int kLdA = ld_a<T, kSlice>();  // A rows padded: conflict-free fragments
+  constexpr int kVec = 16 / sizeof(T);     // elements of one 16-byte copy
   constexpr int WM = PM / 2;             // warp tile rows
   constexpr int MF = WM / 16;            // m16 fragments a warp
   constexpr int NF = 4;                  // n8 fragments a warp (32 columns)
@@ -120,11 +162,12 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
   constexpr int kSub = BK / UNROLL;      // sub-chunk depth
   constexpr int kSubSlices = kSub / kSlice;
   constexpr int kChunkSlices = BK / kSlice;
-  constexpr int kStageFloats = PM * kLdA + kSlice * kLdB;
+  constexpr int kStageElems = PM * kLdA + kSlice * kLdB;
   static_assert(BM % PM == 0 && BN % kPN == 0, "tile is not a multiple of the pass tile");
   static_assert(BK % UNROLL == 0 && kSub % kSlice == 0,
                 "sub-chunks must be whole slices");
   extern __shared__ __align__(16) float smem[];
+  T* const sm = reinterpret_cast<T*>(smem);
 
   const int m_tiles = (M + BM - 1) / BM;
   const int n_tiles = (N + BN - 1) / BN;
@@ -141,9 +184,9 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
   const int wm = warp / 4, wn = warp % 4;
   constexpr int la = LA, stages = LA + 1;
   const int S = (K + kSlice - 1) / kSlice;  // slices over all of K
-  const int T = kPasses * S;                // (pass, slice) items
-  const bool vec_a = K % 4 == 0 && ((uintptr_t)a & 15) == 0;
-  const bool vec_b = N % 4 == 0 && ((uintptr_t)b & 15) == 0;
+  const int n_items = kPasses * S;          // (pass, slice) items
+  const bool vec_a = K % kVec == 0 && ((uintptr_t)a & 15) == 0;
+  const bool vec_b = N % kVec == 0 && ((uintptr_t)b & 15) == 0;
 
   // item -> (pass, slice): pass-major with scratch, chunk-major without
   auto item = [&](int idx, int& p, int& j) {
@@ -169,36 +212,38 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
     item(idx, p, j);
     pass_origin(p, r0, c0);
     const int k0 = j * kSlice;
-    float* as = smem + (size_t)slot * kStageFloats;
-    float* bs = as + PM * kLdA;
+    T* as = sm + (size_t)slot * kStageElems;
+    T* bs = as + PM * kLdA;
     if (vec_a) {
-      for (int e = tid; e < PM * (kSlice / 4); e += kThreads) {
-        const int r = e / (kSlice / 4), kk = (e % (kSlice / 4)) * 4;
+      for (int e = tid; e < PM * (kSlice / kVec); e += kThreads) {
+        const int r = e / (kSlice / kVec), kk = (e % (kSlice / kVec)) * kVec;
         const int gr = r0 + r, gk = k0 + kk;
-        const int n = gr < M ? max(0, min(4, K - gk)) : 0;
-        sm90::cp_async16(as + r * kLdA + kk, n ? a + (size_t)gr * K + gk : a, 4 * n);
+        const int n = gr < M ? max(0, min(kVec, K - gk)) : 0;
+        sm90::cp_async16(as + r * kLdA + kk, n ? a + (size_t)gr * K + gk : a,
+                         (int)sizeof(T) * n);
       }
     } else {
       for (int e = tid; e < PM * kSlice; e += kThreads) {
         const int r = e / kSlice, kk = e % kSlice;
         const int gr = r0 + r, gk = k0 + kk;
         const bool in = gr < M && gk < K;
-        sm90::cp_async4(as + r * kLdA + kk, in ? a + (size_t)gr * K + gk : a, in ? 4 : 0);
+        copy_elem(as + r * kLdA + kk, in ? a + (size_t)gr * K + gk : a, in);
       }
     }
     if (vec_b) {
-      for (int e = tid; e < kSlice * (kPN / 4); e += kThreads) {
-        const int kk = e / (kPN / 4), cc = (e % (kPN / 4)) * 4;
+      for (int e = tid; e < kSlice * (kPN / kVec); e += kThreads) {
+        const int kk = e / (kPN / kVec), cc = (e % (kPN / kVec)) * kVec;
         const int gk = k0 + kk, gc = c0 + cc;
-        const int n = gk < K ? max(0, min(4, N - gc)) : 0;
-        sm90::cp_async16(bs + kk * kLdB + cc, n ? b + (size_t)gk * N + gc : b, 4 * n);
+        const int n = gk < K ? max(0, min(kVec, N - gc)) : 0;
+        sm90::cp_async16(bs + kk * kLdB + cc, n ? b + (size_t)gk * N + gc : b,
+                         (int)sizeof(T) * n);
       }
     } else {
       for (int e = tid; e < kSlice * kPN; e += kThreads) {
         const int kk = e / kPN, cc = e % kPN;
         const int gk = k0 + kk, gc = c0 + cc;
         const bool in = gk < K && gc < N;
-        sm90::cp_async4(bs + kk * kLdB + cc, in ? b + (size_t)gk * N + gc : b, in ? 4 : 0);
+        copy_elem(bs + kk * kLdB + cc, in ? b + (size_t)gk * N + gc : b, in);
       }
     }
   };
@@ -238,12 +283,12 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
       for (int i = 0; i < 4; ++i) part[mf][nf][i] = 0.f;
 
   for (int s = 0; s < la; ++s) {
-    if (s < T) issue(s, s);
+    if (s < n_items) issue(s, s);
     sm90::cp_async_commit();
   }
 
 #pragma unroll 1
-  for (int idx = 0; idx < T; ++idx) {
+  for (int idx = 0; idx < n_items; ++idx) {
     if constexpr (la == 0) {
       __syncthreads();  // every warp is done with the only stage
       issue(idx, 0);
@@ -252,7 +297,7 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
     sm90::cp_async_wait(la == 0 ? 0 : la - 1);
     __syncthreads();  // item idx has landed; slot (idx - 1) % stages is free
     if constexpr (la > 0) {
-      if (idx + la < T) issue(idx + la, (idx + la) % stages);
+      if (idx + la < n_items) issue(idx + la, (idx + la) % stages);
       sm90::cp_async_commit();
     }
 
@@ -268,28 +313,51 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
           for (int i = 0; i < 4; ++i) acc[mf][nf][i] = 0.f;
     }
 
-    const float* as = smem + (size_t)(idx % stages) * kStageFloats;
-    const float* bs = as + PM * kLdA;
+    const T* as = sm + (size_t)(idx % stages) * kStageElems;
+    const T* bs = as + PM * kLdA;
+    if constexpr (kBf16) {
 #pragma unroll
-    for (int kk = 0; kk < kSlice; kk += 8) {
-      uint32_t bb[NF][2], bsm[NF][2];
+      for (int kk = 0; kk < kSlice; kk += 16) {
+        // B[kk + 2q, kk + 2q + 1][col] and rows + 8: k pairs from an
+        // n-contiguous tile, two 16-bit reads a register
+        uint32_t bb[NF][2];
 #pragma unroll
-      for (int nf = 0; nf < NF; ++nf) {
-        const int col = wn * 32 + nf * 8 + g;
-        sm90::tf32_split(bs[(kk + q) * kLdB + col], bb[nf][0], bsm[nf][0]);
-        sm90::tf32_split(bs[(kk + q + 4) * kLdB + col], bb[nf][1], bsm[nf][1]);
+        for (int nf = 0; nf < NF; ++nf) {
+          const T* bc = bs + (kk + 2 * q) * kLdB + wn * 32 + nf * 8 + g;
+          bb[nf][0] = sm90::pack_u16x2(bc[0], bc[kLdB]);
+          bb[nf][1] = sm90::pack_u16x2(bc[8 * kLdB], bc[9 * kLdB]);
+        }
+#pragma unroll
+        for (int mf = 0; mf < MF; ++mf) {
+          const T* ar = as + (wm * WM + mf * 16 + g) * kLdA + kk + 2 * q;
+          const uint32_t af[4] = {ld32(ar), ld32(ar + 8 * kLdA), ld32(ar + 8),
+                                  ld32(ar + 8 * kLdA + 8)};
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf) sm90::mma_bf16_m16n8k16(part[mf][nf], af, bb[nf]);
+        }
       }
+    } else {
 #pragma unroll
-      for (int mf = 0; mf < MF; ++mf) {
-        const int row = wm * WM + mf * 16 + g;
-        uint32_t ab[4], asm_[4];
-        sm90::tf32_split(as[row * kLdA + kk + q], ab[0], asm_[0]);
-        sm90::tf32_split(as[(row + 8) * kLdA + kk + q], ab[1], asm_[1]);
-        sm90::tf32_split(as[row * kLdA + kk + q + 4], ab[2], asm_[2]);
-        sm90::tf32_split(as[(row + 8) * kLdA + kk + q + 4], ab[3], asm_[3]);
+      for (int kk = 0; kk < kSlice; kk += 8) {
+        uint32_t bb[NF][2], bsm[NF][2];
 #pragma unroll
-        for (int nf = 0; nf < NF; ++nf)
-          sm90::mma_3xtf32(part[mf][nf], ab, asm_, bb[nf], bsm[nf]);
+        for (int nf = 0; nf < NF; ++nf) {
+          const int col = wn * 32 + nf * 8 + g;
+          sm90::tf32_split(bs[(kk + q) * kLdB + col], bb[nf][0], bsm[nf][0]);
+          sm90::tf32_split(bs[(kk + q + 4) * kLdB + col], bb[nf][1], bsm[nf][1]);
+        }
+#pragma unroll
+        for (int mf = 0; mf < MF; ++mf) {
+          const int row = wm * WM + mf * 16 + g;
+          uint32_t ab[4], asm_[4];
+          sm90::tf32_split(as[row * kLdA + kk + q], ab[0], asm_[0]);
+          sm90::tf32_split(as[(row + 8) * kLdA + kk + q], ab[1], asm_[1]);
+          sm90::tf32_split(as[row * kLdA + kk + q + 4], ab[2], asm_[2]);
+          sm90::tf32_split(as[(row + 8) * kLdA + kk + q + 4], ab[3], asm_[3]);
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf)
+            sm90::mma_3xtf32(part[mf][nf], ab, asm_, bb[nf], bsm[nf]);
+        }
       }
     }
 
@@ -339,45 +407,53 @@ matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // Host launcher for one instantiation: on `stream`, allocates nothing,
 // does not synchronise; returns the launch status (cudaGetLastError),
 // which the Python wrapper turns into an exception.
-template <int BM, int BN, int BK, int UNROLL, int LA>
-int launch_depth(const float* a, const float* b, float* c, int M, int N, int K,
+template <class T, int BM, int BN, int BK, int UNROLL, int LA>
+int launch_depth(const T* a, const T* b, float* c, int M, int N, int K,
                  int order, int scratch, void* stream) {
-  const size_t smem = (size_t)(LA + 1) * stage_bytes<BM, BK, UNROLL>();
+  const size_t smem = (size_t)(LA + 1) * stage_bytes<T, BM, BK, UNROLL>();
   // above 48 KB, dynamic shared memory must be opted in to; the attribute
   // belongs to the current device, so it is set on every launch
   const cudaError_t attr = cudaFuncSetAttribute(
-      matmul_kernel<BM, BN, BK, UNROLL, LA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      matmul_kernel<T, BM, BN, BK, UNROLL, LA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const long long blocks = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   if (blocks <= 0) return (int)cudaSuccess;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  matmul_kernel<BM, BN, BK, UNROLL, LA>
+  matmul_kernel<T, BM, BN, BK, UNROLL, LA>
       <<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(a, b, c, M, N, K, order,
                                                                   scratch);
   return (int)cudaGetLastError();
 }
 
-template <int BM, int BN, int BK, int UNROLL>
-int launch(const float* a, const float* b, float* c, int M, int N, int K,
+template <class T, int BM, int BN, int BK, int UNROLL>
+int launch(const T* a, const T* b, float* c, int M, int N, int K,
            int order, int scratch, int lookahead, void* stream) {
   switch (lookahead) {
-    case 0: return launch_depth<BM, BN, BK, UNROLL, 0>(a, b, c, M, N, K, order, scratch, stream);
-    case 1: return launch_depth<BM, BN, BK, UNROLL, 1>(a, b, c, M, N, K, order, scratch, stream);
-    case 2: return launch_depth<BM, BN, BK, UNROLL, 2>(a, b, c, M, N, K, order, scratch, stream);
+    case 0: return launch_depth<T, BM, BN, BK, UNROLL, 0>(a, b, c, M, N, K, order, scratch, stream);
+    case 1: return launch_depth<T, BM, BN, BK, UNROLL, 1>(a, b, c, M, N, K, order, scratch, stream);
+    case 2: return launch_depth<T, BM, BN, BK, UNROLL, 2>(a, b, c, M, N, K, order, scratch, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace matmul
 
-// One exported C symbol per instantiation:
-//   int matmul_bm<BM>_bn<BN>_bk<BK>_u<UNROLL>(a, b, c, M, N, K, order,
-//                                             scratch, lookahead, stream)
+// One exported C symbol per instantiation and operand type:
+//   int matmul_bm<BM>_bn<BN>_bk<BK>_u<UNROLL>[_bf16](a, b, c, M, N, K,
+//                                     order, scratch, lookahead, stream)
+// fp32 operands without a suffix, bf16 operands with `_bf16`; c is fp32.
 #define MATMUL_INSTANTIATE(BM, BN, BK, U)                                             \
   extern "C" int matmul_bm##BM##_bn##BN##_bk##BK##_u##U(                              \
       const float* a, const float* b, float* c, int M, int N, int K, int order,       \
       int scratch, int lookahead, void* stream) {                                     \
-    return matmul::launch<BM, BN, BK, U>(a, b, c, M, N, K, order, scratch, lookahead, \
-                                         stream);                                     \
+    return matmul::launch<float, BM, BN, BK, U>(a, b, c, M, N, K, order, scratch,     \
+                                                lookahead, stream);                   \
+  }
+#define MATMUL_INSTANTIATE_BF16(BM, BN, BK, U)                                        \
+  extern "C" int matmul_bm##BM##_bn##BN##_bk##BK##_u##U##_bf16(                       \
+      const matmul::bf16_t* a, const matmul::bf16_t* b, float* c, int M, int N,       \
+      int K, int order, int scratch, int lookahead, void* stream) {                   \
+    return matmul::launch<matmul::bf16_t, BM, BN, BK, U>(a, b, c, M, N, K, order,     \
+                                                         scratch, lookahead, stream); \
   }

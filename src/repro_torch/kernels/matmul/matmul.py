@@ -1,4 +1,4 @@
-"""Tiled fp32 matmul kernel for Hopper with an auto-tunable variant space.
+"""Tiled matmul kernel for Hopper with an auto-tunable variant space.
 
 Mirrors ``repro/kernels/matmul/matmul.py``: ``matmul_cuda`` takes the
 place of ``matmul_pallas``, with the same tuning point:
@@ -14,12 +14,15 @@ place of ``matmul_pallas``, with the same tuning point:
               computed (a ring of lookahead + 1 shared-memory stages)
 
 The kernel is CUDA C++ (``csrc/matmul.cuh``; its header comment is the
-design note): 3xTF32 products on the tensor cores (``mma.sync``, fp32
-accuracy), operands staged by ``cp.async``. ``block_m``, ``block_n``,
-``block_k`` and ``unroll`` are template parameters, one instantiation
-per combination (108), all built once into one shared library;
-``order``, ``scratch`` and ``lookahead`` are run-time arguments.
-Generating a variant resolves its symbol.
+design note): on the tensor cores (``mma.sync``), 3xTF32 products for
+fp32 operands (fp32 accuracy) and bf16 products for bf16 operands (exact
+in fp32), fp32 accumulators and an fp32 output either way, as
+``matmul_pallas`` writes ``out_dtype=jnp.float32``; operands staged by
+``cp.async``. ``block_m``, ``block_n``, ``block_k``, ``unroll`` and the
+operand type are template parameters, one instantiation per combination
+(108 a type), all built once into one shared library; ``order``,
+``scratch`` and ``lookahead`` are run-time arguments. Generating a
+variant resolves its symbol.
 
 ``matmul_plain`` is the same function in plain PyTorch, chunk for chunk
 and partial for partial. The wrapper uses it only for tensors on the
@@ -53,6 +56,9 @@ OPTIONS = {"block_m": (64, 128, 256, 512), "block_n": (128, 256, 512),
 #: padded row length of the staged B slices (csrc/matmul.cuh ``kLdB``)
 _LD_B = 128 + 8
 
+#: operand type -> symbol suffix (fp32's symbols carry none)
+_TYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+
 
 def pass_m(point: Point) -> int:
     """Rows of the pass tile the block holds in registers
@@ -67,36 +73,47 @@ def slice_depth(point: Point) -> int:
     return 64 if (int(point["block_k"]) // int(point.get("unroll", 1))) % 64 == 0 else 32
 
 
-def smem_bytes(point: Point) -> int:
-    """Shared memory of one block at ``point``: ``lookahead + 1`` ring
-    stages, each a (pass rows x depth) slice of A and a depth x 128 slice
-    of B, rows padded (``matmul::stage_bytes``)."""
+def smem_bytes(point: Point, dtype_bytes: int = 4) -> int:
+    """Shared memory of one block at ``point`` for operands of
+    ``dtype_bytes`` (4: fp32, 2: bf16): ``lookahead + 1`` ring stages,
+    each a (pass rows x depth) slice of A and a depth x 128 slice of B,
+    A rows padded by 16 bytes, B rows by 8 elements
+    (``matmul::stage_bytes``)."""
     depth = slice_depth(point)
-    stage = 4 * (pass_m(point) * (depth + 4) + depth * _LD_B)
+    ld_a = depth + 16 // dtype_bytes
+    stage = dtype_bytes * (pass_m(point) * ld_a + depth * _LD_B)
     return (int(point.get("lookahead", 1)) + 1) * stage
 
 
-#: the largest footprint of any instantiation (128-row passes, 64-deep
-#: slices, three stages: 204 kB)
+#: the largest footprint of any instantiation (fp32, 128-row passes,
+#: 64-deep slices, three stages: 204 kB; bf16's largest is 105 kB)
 SMEM_BYTES = smem_bytes({"block_m": 128, "block_k": 256, "unroll": 1, "lookahead": 2})
 
 _ORDERS = {"mn": 0, "nm": 1}
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def symbol(point: Point) -> str:
-    """Exported C name of the instantiation that serves ``point``."""
+def symbol(point: Point, dtype: torch.dtype = torch.float32) -> str:
+    """Exported C name of the instantiation that serves ``point`` for
+    operands of ``dtype`` (a type without instantiations raises
+    ``KeyError``)."""
+    if dtype not in _TYPES:
+        raise KeyError(f"no matmul instantiation for {dtype}: instantiated "
+                       f"operand types are {tuple(_TYPES)}")
     bm, bn, bk, u = (int(point[k]) for k in PHASE1)
-    return f"matmul_bm{bm}_bn{bn}_bk{bk}_u{u}"
+    return f"matmul_bm{bm}_bn{bn}_bk{bk}_u{u}{_TYPES[dtype]}"
 
 
 def instantiations() -> dict[str, str]:
-    """Symbol -> instantiation line of every valid phase-1 combination."""
+    """Symbol -> instantiation line of every valid phase-1 combination,
+    for each operand type."""
     out = {}
     for combo in itertools.product(*(OPTIONS[k] for k in PHASE1)):
         point = dict(zip(PHASE1, combo))
         if point["block_k"] % point["unroll"] == 0:
-            out[symbol(point)] = f"MATMUL_INSTANTIATE({', '.join(map(str, combo))})"
+            args = ", ".join(map(str, combo))
+            out[symbol(point)] = f"MATMUL_INSTANTIATE({args})"
+            out[symbol(point, torch.bfloat16)] = f"MATMUL_INSTANTIATE_BF16({args})"
     return out
 
 
@@ -112,26 +129,30 @@ def build_kernels(device: "torch.device | str | None" = None) -> KernelLibrary:
 @functools.cache
 def _library() -> KernelLibrary:
     # memoised: the wrapper asks for it on every launch given no library,
-    # and listing the 108 instantiations costs more host time than the
+    # and listing the 216 instantiations costs more host time than the
     # lookup should
-    return load_family("matmul", CSRC, "matmul.cuh", instantiations(), _ARGTYPES)
+    return load_family("matmul", CSRC, "matmul.cuh", instantiations(), _ARGTYPES,
+                       n_units=16)
 
 
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor, point: Point, *,
                 lib: KernelLibrary | None = None) -> torch.Tensor:
-    """(M, K) @ (K, N) -> (M, N) fp32.
+    """(M, K) @ (K, N) -> (M, N) fp32, for fp32 or bf16 operands (both of
+    one type).
 
     On CUDA tensors: checks the arguments, launches the instantiation for
-    ``point`` on the current stream, checks the launch status and counts
-    the launch in ``matmul_cuda.launches``. On CPU tensors: the plain
-    version.
+    ``point`` and the operands' type on the current stream, checks the
+    launch status and counts the launch in ``matmul_cuda.launches`` (and,
+    by operand type, in ``matmul_cuda.launches_by_dtype``). On CPU
+    tensors: the plain version.
     """
     if not a.is_cuda:
         return matmul_plain(a, b, point)
     if b.device != a.device:
         raise ValueError(f"a on {a.device} but b on {b.device}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"matmul_cuda takes float32, got {a.dtype}, {b.dtype}")
+    if a.dtype not in _TYPES or b.dtype != a.dtype:
+        raise TypeError(f"matmul_cuda takes float32 or bfloat16 operands of one "
+                        f"type, got {a.dtype}, {b.dtype}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(
             f"expected a (M, K) and b (K, N), got {tuple(a.shape)}, {tuple(b.shape)}")
@@ -148,19 +169,27 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, point: Point, *,
         lib = build_kernels(a.device)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    lib.launch(symbol(point), a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K,
-               _ORDERS[point.get("order", "mn")], int(bool(point.get("scratch", 1))),
-               lookahead, stream)
+    lib.launch(symbol(point, a.dtype), a.data_ptr(), b.data_ptr(), out.data_ptr(),
+               M, N, K, _ORDERS[point.get("order", "mn")],
+               int(bool(point.get("scratch", 1))), lookahead, stream)
     matmul_cuda.launches += 1
+    by_type = matmul_cuda.launches_by_dtype
+    name = str(a.dtype).removeprefix("torch.")
+    by_type[name] = by_type.get(name, 0) + 1
     return out
 
 
 matmul_cuda.launches = 0
+#: the launches above, split by operand type ("float32", "bfloat16")
+matmul_cuda.launches_by_dtype = {}
 
 
 def matmul_plain(a: torch.Tensor, b: torch.Tensor, point: Point) -> torch.Tensor:
-    """The kernel's function in plain PyTorch (any device).
+    """The kernel's function in plain PyTorch (any device), fp32 out.
 
+    bf16 operands are upcast to fp32 first: their products are exact in
+    fp32, which is what the kernel's bf16 products and the reference's
+    ``preferred_element_type=jnp.float32`` compute.
     Chunk for chunk what ``_mm_kernel`` and the CUDA kernel compute:
     ``ceil(K / block_k)`` chunks (the last masked), each split into
     ``unroll`` sub-chunks whose partial products are summed in order into

@@ -9,10 +9,11 @@ profile) the validator is the TPU kernel's VMEM footprint: the A, B and
 output blocks (and the scratch accumulator). On a CUDA device
 (``hopper=True``) it checks what the Hopper kernel holds in shared
 memory: its ring of ``lookahead + 1`` stages, each a slice of A (the
-pass tile's rows x 64 or 32) and a 64 or 32 x 128 slice of B
-(:func:`~repro_torch.kernels.matmul.matmul.smem_bytes`, 26–204 kB),
-whatever the tile, since the tile is walked in passes and slices; and
-``block_k`` must be one of the instantiated chunk depths.
+pass tile's rows x 64 or 32) and a 64 or 32 x 128 slice of B, in the
+operands' type (:func:`~repro_torch.kernels.matmul.matmul.smem_bytes`,
+26–204 kB in fp32, 14–105 kB in bf16), whatever the tile, since the tile
+is walked in passes and slices; and ``block_k`` must be one of the
+instantiated chunk depths.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def make_space(
             return False  # degenerate over-tiling
         if hopper:
             return (p["block_k"] in OPTIONS["block_k"]
-                    and smem_bytes(p) <= vmem_kb * 1024)
+                    and smem_bytes(p, dtype_bytes) <= vmem_kb * 1024)
         # VMEM footprint hole (the register-pressure analogue)
         words = (
             p["block_m"] * p["block_k"]
@@ -136,15 +137,15 @@ def matmul_cost_model(
 
 
 # --------------------------------------------------------------- compilette
-def _variant(point: Point, device: torch.device):
-    """The variant serving ``point``: the hand kernel on CUDA (its
-    instantiation resolved now, so a missing one raises here), the plain
-    version on the CPU."""
+def _variant(point: Point, device: torch.device, dtype: torch.dtype):
+    """The variant serving ``point`` for operands of ``dtype``: the hand
+    kernel on CUDA (its instantiation resolved now, so a missing one
+    raises here), the plain version on the CPU."""
     pt = dict(point)
     lib = None
     if device.type == "cuda":
         lib = build_kernels(device)
-        lib.resolve(symbol(pt))
+        lib.resolve(symbol(pt, dtype))
 
     def fn(a, b):
         return matmul_cuda(a, b, pt, lib=lib)
@@ -176,7 +177,7 @@ def make_matmul_compilette(
     space = make_space(M, N, K, dtype_bytes=itemsize, vmem_kb=vmem_kb, hopper=on_cuda)
 
     def generate(point: Point, **spec: Any):
-        return _variant(point, dev)
+        return _variant(point, dev, dtype)
 
     def cost_model(point: Point, spec: dict[str, Any], profile: DeviceProfile) -> float:
         full = {"M": M, "N": N, "K": K, "dtype_bytes": itemsize}
@@ -198,7 +199,8 @@ def _catalog_space(spec: dict[str, Any]) -> TuningSpace:
 
 
 def _catalog_generate(point: Point, spec: dict[str, Any]):
-    return _variant(point, resolve_device(spec.get("device")))
+    return _variant(point, resolve_device(spec.get("device")),
+                    torch_dtype(spec.get("dtype", "float32")))
 
 
 def _catalog_cost(point: Point, spec: dict[str, Any], profile) -> float:

@@ -100,7 +100,8 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, point: Point, *,
     On CUDA tensors: checks the arguments, launches the instantiation for
     ``point`` on the current stream, checks the launch status and counts
     the launch in ``rmsnorm_cuda.launches`` (and, by its number of rows,
-    in ``rmsnorm_cuda.launches_by_rows``). On CPU tensors: the plain
+    in ``rmsnorm_cuda.launches_by_rows``; by its type in
+    ``rmsnorm_cuda.launches_by_dtype``). On CPU tensors: the plain
     version.
     """
     if not x.is_cuda:
@@ -132,11 +133,16 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, point: Point, *,
     rmsnorm_cuda.launches += 1
     by_rows = rmsnorm_cuda.launches_by_rows
     by_rows[N] = by_rows.get(N, 0) + 1
+    by_type = rmsnorm_cuda.launches_by_dtype
+    name = str(x.dtype).removeprefix("torch.")
+    by_type[name] = by_type.get(name, 0) + 1
     return out
 
 
 rmsnorm_cuda.launches = 0
 rmsnorm_cuda.launches_by_rows = {}
+#: by input type ("float32", "bfloat16")
+rmsnorm_cuda.launches_by_dtype = {}
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, point: Point, *,

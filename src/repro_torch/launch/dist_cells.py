@@ -39,8 +39,11 @@ STORE = os.path.join(os.path.dirname(__file__), "dist_cells.json")
 #: (arch, shape, mesh): the cells torch 2.11 failed or replicated,
 #: deepseek-7b's train cell on the multi-pod mesh, the MoE train cell
 #: (the most pinned sites; too large at full depth for a host trace
-#: beside other work), and the two long decode cells, whose one batch row
-#: does not split (``sharding.pinned`` contracts over the FSDP dim there)
+#: beside other work), the two long decode cells, whose one batch row
+#: does not split (``sharding.pinned`` contracts over the FSDP dim
+#: there), and three prefill cells (a forward with no backward that
+#: returns its cache, and the chunked attention over 32k): deepseek-7b,
+#: qwen2.5-32b (40 heads over 16: uneven) and whisper-tiny
 CELLS = (
     ("deepseek-7b", "train_4k", "single"),
     ("deepseek-7b", "decode_32k", "single"),
@@ -56,8 +59,15 @@ CELLS = (
     ("qwen3-moe-30b-a3b", "train_4k", "single"),
     ("hymba-1.5b", "long_500k", "single"),
     ("rwkv6-1.6b", "long_500k", "single"),
+    ("deepseek-7b", "prefill_32k", "single"),
+    ("qwen2.5-32b", "prefill_32k", "single"),
+    ("whisper-tiny", "prefill_32k", "single"),
 )
 LAYERS = 1
+#: the attention chunks of a prefill cell: the dry run's for prefill_32k
+#: (``--attn-q-chunk 4096 --attn-k-chunk 8192``: the FLOPs of the
+#: default chunks in 64 blocks a layer, not 2048)
+PREFILL_CHUNKS = {"attn_q_chunk": 4096, "attn_k_chunk": 8192}
 COUNT_REL = 0.01
 MEMORY_REL = 0.10
 #: the counts held, and the limit of each
@@ -69,12 +79,14 @@ def name(cell) -> str:
     return "_".join(cell)
 
 
-def overrides(arch: str) -> dict:
+def overrides(arch: str, shape: str) -> dict:
     """The depth cut: one layer (whisper: one encoder and one decoder
-    layer)."""
+    layer); a prefill cell's attention chunks (PREFILL_CHUNKS)."""
     cut = {"n_layers": LAYERS}
     if arch == "whisper-tiny":
         cut["enc_layers"] = LAYERS
+    if shape.startswith("prefill"):
+        cut.update(PREFILL_CHUNKS)
     return cut
 
 
@@ -94,7 +106,7 @@ def trace_one(arch: str, shape: str, mesh: str) -> dict:
 
     from repro_torch.launch.dryrun import run_cell
 
-    rec = run_cell(arch, shape, mesh, overrides=overrides(arch))
+    rec = run_cell(arch, shape, mesh, overrides=overrides(arch, shape))
     if rec["status"] != "ok":
         raise RuntimeError(f"{name((arch, shape, mesh))}: {rec['status']}")
     return {**counts(rec), "trace_s": rec["trace_s"], "torch": torch.__version__}

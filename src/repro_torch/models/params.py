@@ -47,11 +47,21 @@ def _set(tree: dict, path, value):
     tree[path[-1]] = value
 
 
+#: the most elements of one fp32 draw when a leaf is made in another
+#: type (512 MB): such a leaf is drawn in slices along its leading axis
+DRAW_ELEMS = 1 << 27
+
+
 def init_tree(defs: dict, generator: torch.Generator, *,
               dtype: torch.dtype = torch.float32,
               device: "torch.device | str" = "cpu") -> dict:
     """Materialize ``defs`` on ``device``: normal draws (fp32, times the
     def's scale) from ``generator``, which must live on that device.
+
+    An fp32 leaf is one draw. A leaf of another type is preallocated in
+    that type and drawn in fp32 slices along its leading axis, each of at
+    most :data:`DRAW_ELEMS` elements (or one row): a leaf never lives
+    whole in fp32 (qwen3-moe's stacked ``w_gate`` is 38.7 GB in fp32).
 
     ``jax.random`` and torch's generators give different numbers from one
     seed; tests that compare the two packages carry the JAX tree over
@@ -63,9 +73,17 @@ def init_tree(defs: dict, generator: torch.Generator, *,
             arr = torch.zeros(d.shape, dtype=dtype, device=device)
         elif d.init == "ones":
             arr = torch.ones(d.shape, dtype=dtype, device=device)
-        else:
+        elif dtype == torch.float32 or len(d.shape) < 2:
             arr = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                               device=device).mul_(d.scale).to(dtype)
+        else:
+            arr = torch.empty(d.shape, dtype=dtype, device=device)
+            row = arr[0].numel()
+            step = max(1, DRAW_ELEMS // max(row, 1))
+            for lo in range(0, d.shape[0], step):
+                part = arr[lo:lo + step]
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       dtype=torch.float32, device=device).mul_(d.scale))
         _set(out, path, arr)
     return out
 

@@ -9,10 +9,10 @@
 // The Hopper primitives of src/repro_torch/kernels/_csrc/sm90.cuh have
 // host versions here, in the same namespace: tf32_split rounds to
 // nearest, ties away, on the low 13 mantissa bits, tf32_split_trunc
-// clears them; the m16n8k8 product
-// gathers the warp's fragments through a per-warp exchange, in PTX's
-// documented fragment layout, so a kernel's fragment indexing is really
-// checked; cp.async copies (with zero-fill) are held per thread in commit
+// clears them; pack_bf16x2 rounds to nearest even; the m16n8k8 (TF32)
+// and m16n8k16 (bf16) products gather the warp's fragments through a
+// per-warp exchange, in PTX's documented fragment layout, so a kernel's
+// fragment indexing is really checked; cp.async copies (with zero-fill) are held per thread in commit
 // groups and land when cp_async_wait retires their group, so a stage read
 // before its wait reads stale data, as it may on the card.
 #pragma once
@@ -119,6 +119,44 @@ inline void mma_3xtf32(float d[4], const uint32_t a_big[4], const uint32_t a_sma
   mma_tf32_m16n8k8(d, a_big, b_small);
   mma_tf32_m16n8k8(d, a_big, b_big);
 }
+// the m16n8k16 bf16 product: two bf16 values a register, lower index in
+// the low half, gathered through the same per-warp exchange
+inline void mma_bf16_m16n8k16(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  const int t = threadIdx.x, w = t / 32, base = w * 32, lane = t % 32;
+  for (int i = 0; i < 4; ++i) g_mma_a[t][i] = a[i];
+  for (int i = 0; i < 2; ++i) g_mma_b[t][i] = b[i];
+  g_warp_barriers[w]->arrive_and_wait();
+  auto lo = [](uint32_t u) { return (double)__uint_as_float(u << 16); };
+  auto hi = [](uint32_t u) { return (double)__uint_as_float(u & 0xffff0000u); };
+  double A[16][16], B[16][8];
+  for (int l = 0; l < 32; ++l) {
+    const int gg = l / 4, qq = l % 4;
+    const uint32_t* ra = g_mma_a[base + l];
+    const uint32_t* rb = g_mma_b[base + l];
+    A[gg][2 * qq] = lo(ra[0]);         A[gg][2 * qq + 1] = hi(ra[0]);
+    A[gg + 8][2 * qq] = lo(ra[1]);     A[gg + 8][2 * qq + 1] = hi(ra[1]);
+    A[gg][2 * qq + 8] = lo(ra[2]);     A[gg][2 * qq + 9] = hi(ra[2]);
+    A[gg + 8][2 * qq + 8] = lo(ra[3]); A[gg + 8][2 * qq + 9] = hi(ra[3]);
+    B[2 * qq][gg] = lo(rb[0]);         B[2 * qq + 1][gg] = hi(rb[0]);
+    B[2 * qq + 8][gg] = lo(rb[1]);     B[2 * qq + 9][gg] = hi(rb[1]);
+  }
+  g_warp_barriers[w]->arrive_and_wait();
+  const int g = lane / 4, q = lane % 4;
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i / 2), c = 2 * q + i % 2;
+    double s = d[i];
+    for (int k = 0; k < 16; ++k) s += A[r][k] * B[k][c];
+    d[i] = (float)s;
+  }
+}
+// round to nearest, ties to even (finite values)
+inline uint32_t bf16_bits(float x) {
+  uint32_t u = __float_as_uint(x);
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return u >> 16;
+}
+inline uint32_t pack_bf16x2(float lo, float hi) { return bf16_bits(lo) | (bf16_bits(hi) << 16); }
+inline uint32_t pack_u16x2(uint16_t lo, uint16_t hi) { return (uint32_t)lo | ((uint32_t)hi << 16); }
 // cp.async lands only when a wait_group retires its group: a kernel that
 // reads a stage before waiting for it reads stale data here too
 struct EmuCopy { void* dst; const void* src; int size, src_bytes; };

@@ -36,12 +36,13 @@ from repro_torch.launch import dist_cells  # noqa: E402
 #: the cut cells traced here: deepseek-7b's two, one of each of the
 #: three faults torch 2.11 showed (a split of a sharded dim: qwen2.5-32b;
 #: a pending sum asked of a shard: hymba-1.5b, whisper-tiny; a plain
-#: pending sum into a masked one: command-r-35b), and a decode whose
-#: batch row does not split (hymba-1.5b long_500k)
+#: pending sum into a masked one: command-r-35b), a decode whose
+#: batch row does not split (hymba-1.5b long_500k), and deepseek-7b's
+#: prefill cell at the dry run's prefill chunks
 TIER1 = [("deepseek-7b", "train_4k", "single"), ("deepseek-7b", "decode_32k", "single"),
          ("hymba-1.5b", "decode_32k", "single"), ("whisper-tiny", "train_4k", "single"),
          ("command-r-35b", "train_4k", "single"), ("qwen2.5-32b", "train_4k", "single"),
-         ("hymba-1.5b", "long_500k", "single")]
+         ("hymba-1.5b", "long_500k", "single"), ("deepseek-7b", "prefill_32k", "single")]
 
 
 @pytest.fixture(scope="module")
