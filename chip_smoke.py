@@ -111,15 +111,26 @@ the kernels' launch counts set to 0 just before and read just after:
    through the plain versions (b) and the fp32 run of the same params
    (c); the kernels may add no more error than bf16 itself, so the
    relative L2 distance of (a) from (b) may not pass that of (b) from
-   (c).
+   (c). Every bf16 matmul and attention launch of the phase must take
+   the wgmma path (the kernels on Hopper's wgmma, TMA and mbarriers);
+   the launches by path are printed.
+
+The build phase also reads the SASS of the matmul and attention
+libraries (``cuobjdump --dump-sass``): each bf16 wgmma kernel, one for
+each ``_bf16`` symbol, must hold HGMMA and UTMALDG instructions; their
+registers, spill bytes and the warpgroup waits ptxas inserted are
+printed.
 
 Then it holds each kernel against its plain PyTorch version (every
 instantiation at every ring depth at ragged shapes — for attention at
 each head dim, 16, 64 and 128 — a few points at the
 main path's shapes, with limits a TF32 product fails, and a TF32 control
 that shows it; the bf16 instantiations of matmul and attention likewise,
-on bf16 inputs, within MATMUL_TOL and ATTENTION_BF16_TOL, with a control
-that attention with p rounded to fp8 fails), compares the
+on bf16 inputs, on both bf16 paths (the wgmma kernels at shapes TMA can
+describe, PR 21's mma.sync kernels at ones it cannot: K or N no
+multiple of 8, k and v one element past 16 bytes), within MATMUL_TOL
+and ATTENTION_BF16_TOL, with a control that attention with p rounded
+to fp8 fails), compares the
 served model's prefill logits with the
 plain versions on the CPU at full width and 2 layers (and the training
 loss's gradient of every parameter the same way), holds the gradients of
@@ -127,9 +138,11 @@ the rmsnorm and attention Functions against autograd through their
 plain versions, and times each kernel beside its bound, its plain
 version and one PyTorch library call (euclid at each Table 3 input;
 rmsnorm at prefill's and decode's shapes, at d 4096 and at hymba's 1600;
-the bf16 matmul and attention at the bf16 phase's handle shapes, against
-the bf16 tensor cores' 989 TFLOP/s). It prints one ``kernels`` JSON line
-and, last, ``{"ok": true, "device": {...}}``.
+the bf16 matmul and attention at the bf16 phase's handle shapes beside
+PR 21's mma.sync kernels at the same points, against the bf16 tensor
+cores' 989 TFLOP/s; rmsnorm on bf16 at the bf16 phase's rows, d 4096
+and 2048). It prints the total and the build seconds, one ``kernels``
+JSON line and, last, ``{"ok": true, "device": {...}}``.
 A profiler trace of one prefill and a few decode steps at full width
 says where the serving time goes (device busy share, kernels by device
 time), and one of 3 training steps where the training time goes, the
@@ -670,7 +683,83 @@ def build_all(dev) -> tuple[dict, dict]:
     report["euclid"]["load_s"] = libs["euclid"].load_s
     print(f"builds: {wall:.1f} s wall, in parallel; euclid's kernels loaded into "
           f"the context in {report['euclid']['load_s']:.3f} s (inside that wall)")
+    report["wgmma_sass"] = check_wgmma_sass(libs)
     return libs, report
+
+
+#: the bf16 wgmma kernels' device functions, by family (their mangled
+#: names hold these), one per ``_bf16`` symbol
+WGMMA_KERNELS = {"matmul": "matmul_wgmma", "attention": "flash_wgmma"}
+
+
+def check_wgmma_sass(libs) -> dict:
+    """Read the SASS of the matmul and attention libraries
+    (``cuobjdump --dump-sass``): every wgmma kernel must hold HGMMA
+    (wgmma) and UTMALDG (TMA tile load) instructions, and there must be
+    one for each ``_bf16`` symbol. Also the ptxas report of those
+    kernels alone (registers, spills, and warpgroup waits ptxas
+    inserted, message C7517)."""
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        tool = "cuobjdump"
+    t0 = time.perf_counter()
+    texts, jobs = {}, []
+    for name, kernel in WGMMA_KERNELS.items():
+        log = libs[name].built.path.with_suffix(".ptxas.log")
+        texts[name] = log.read_text() if log.exists() else ""
+        # the wgmma kernels' mangled names, from ptxas's report, dumped a
+        # few at a time by parallel cuobjdump processes (the whole library
+        # takes minutes on one core)
+        names = sorted(set(re.findall(rf"Compiling entry function '(\w*{kernel}\w*)'",
+                                      texts[name])))
+        jobs += [(name, names[i:i + 8]) for i in range(0, len(names), 8)]
+
+    def dump(job):
+        name, names = job
+        res = subprocess.run([tool, "--dump-sass", "--function", ",".join(names),
+                              str(libs[name].built.path)],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            fail(f"cuobjdump failed on the {name} library: {res.stderr[-2000:]}")
+        return name, res.stdout
+
+    with ThreadPoolExecutor(max(1, min(8, os.cpu_count() or 1))) as pool:
+        dumps = list(pool.map(dump, jobs))
+    out = {}
+    for name, kernel in WGMMA_KERNELS.items():
+        funcs = {}
+        for family, sass in dumps:
+            if family != name:
+                continue
+            for block in sass.split("Function : ")[1:]:
+                fname = block.split("\n", 1)[0].strip()
+                if kernel in fname:
+                    funcs[fname] = (block.count("HGMMA"), block.count("UTMALDG"))
+        want = sum(1 for sym in libs[name].symbols if sym.endswith("_bf16"))
+        lacking = [f for f, (h, u) in funcs.items() if not (h and u)]
+        if len(funcs) != want or lacking:
+            fail(f"{name}: {len(funcs)} wgmma kernels in the SASS for {want} _bf16 symbols; "
+                 f"without HGMMA or UTMALDG: {lacking[:5]}")
+        text = texts[name]
+        mine = [part for part in text.split("Compiling entry function")[1:]
+                if kernel in part.split("\n", 1)[0]]
+        regs = [int(r) for p in mine for r in re.findall(r"Used (\d+) registers", p)]
+        spills = [int(x) for p in mine for x in re.findall(r"(\d+) bytes spill stores", p)]
+        injected = len(re.findall(rf"C7517\).*?{kernel}", text))
+        out[name] = {"kernels": len(funcs), "min_hgmma": min(h for h, _ in funcs.values()),
+                     "min_utmaldg": min(u for _, u in funcs.values()),
+                     "max_registers": max(regs, default=0),
+                     "max_spill_store_bytes": max(spills, default=0),
+                     "spilling_kernels": sum(1 for x in spills if x > 0),
+                     "injected_waits": injected}
+        print(f"{name} wgmma SASS: {out[name]['kernels']} kernels, each with HGMMA "
+              f"(at least {out[name]['min_hgmma']}) and UTMALDG (at least "
+              f"{out[name]['min_utmaldg']}); ptxas: {out[name]['max_registers']} registers "
+              f"at most, {out[name]['max_spill_store_bytes']} spill-store bytes at most "
+              f"({out[name]['spilling_kernels']} kernels spill), {injected} kernels with a "
+              f"warpgroup wait ptxas inserted (C7517)")
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def reset_lm_counts() -> None:
@@ -681,6 +770,8 @@ def reset_lm_counts() -> None:
     for fn in (matmul_cuda, rmsnorm_cuda, flash_attention_cuda):
         fn.launches = 0
         fn.launches_by_dtype = {}
+    for fn in (matmul_cuda, flash_attention_cuda):
+        fn.launches_by_path = {}
     rmsnorm_cuda.launches_by_rows = {}
 
 
@@ -715,6 +806,16 @@ def lm_counts_by_dtype() -> dict:
             "rmsnorm": dict(rmsnorm_cuda.launches_by_dtype),
             "flash_attention": {t: dict(sorted(by.items())) for t, by in
                                 flash_attention_cuda.launches_by_dtype.items()}}
+
+
+def lm_counts_by_path() -> dict:
+    """The matmul and attention launches of lm_counts split by path
+    (``tf32x3``, ``wgmma``, ``mma``)."""
+    from repro_torch.kernels.attention.attention import flash_attention_cuda
+    from repro_torch.kernels.matmul.matmul import matmul_cuda
+
+    return {"matmul": dict(matmul_cuda.launches_by_path),
+            "flash_attention": dict(flash_attention_cuda.launches_by_path)}
 
 
 def run_serve(dev) -> dict:
@@ -1099,6 +1200,7 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
         seconds = time.perf_counter() - t0
         launches = lm_counts()
         by_dtype = lm_counts_by_dtype()
+        by_path = lm_counts_by_path()
         by_dh = attention_by_head_dim()
         rms_by_rows = dict(sorted(rmsnorm_cuda.launches_by_rows.items()))
         specs = {h.name: dict(h.specialization) for h in session.plane.handles()}
@@ -1150,6 +1252,7 @@ def run_family(dev, arch: str, layers, batch: int, prompt: int, tokens: int,
     return {"arch": arch, "n_layers": cfg.n_layers, "of_layers": full.n_layers,
             "dtype": str(cfg.compute_dtype).removeprefix("torch."),
             "handle_specs": specs, "launches_by_dtype": by_dtype,
+            "launches_by_path": by_path,
             "batch": batch, "prompt": prompt, "tokens": tokens,
             "prefill_tokens": prompt + (cfg.vision_patches if cfg.family == "vlm" else 0),
             "params": cfg.n_params(), "seconds": seconds, "requests": rows,
@@ -1221,6 +1324,17 @@ def run_bf16(dev) -> dict:
         n: sum(total(r["launches_by_dtype"][n].get("bfloat16", 0))
                for r in out["runs"].values())
         for n in ("matmul", "rmsnorm", "flash_attention")}
+    # at the served shapes every bf16 product and attention call is one
+    # TMA can describe: all of them must take the wgmma kernels
+    out["launches_by_path"] = {
+        n: {p: sum(r["launches_by_path"][n].get(p, 0) for r in out["runs"].values())
+            for p in ("wgmma", "mma", "tf32x3")}
+        for n in ("matmul", "flash_attention")}
+    for n, by in out["launches_by_path"].items():
+        print(f"  bf16 phase {n} launches by path: {by}")
+        if by["mma"] or by["tf32x3"] or not by["wgmma"]:
+            fail(f"bf16 phase: {n} launches by path {by}; every launch at the served "
+                 f"shapes must take the wgmma path")
     out["logits"] = check_bf16_logits(dev)
     out["seconds"] = time.perf_counter() - t0
     for arch, r in out["runs"].items():
@@ -1781,7 +1895,7 @@ def check_matmul(lib, dev, gen) -> dict:
     import torch
 
     from repro_torch.kernels.matmul.matmul import (
-        PHASE1, instantiations, matmul_cuda, matmul_plain)
+        PHASE1, instantiations, matmul_cuda, matmul_plain, path)
     from repro_torch.kernels.matmul.ops import DEFAULT_POINT, make_space
 
     cases, inputs = [], {}
@@ -1796,7 +1910,10 @@ def check_matmul(lib, dev, gen) -> dict:
     ragged = (333, 450, 700)
     fp32, bf16 = [], []
     for sym in sorted(instantiations()):
-        (bf16 if sym.endswith("_bf16") else fp32).append(sym)
+        if "_bf16" not in sym:
+            fp32.append(sym)
+        elif sym.endswith("_bf16"):
+            bf16.append(sym)
     for i, sym in enumerate(fp32):
         dims = [int(v) for v in re.findall(r"\d+", sym)]
         point = dict(zip(PHASE1, dims), order=("mn", "nm")[i % 2],
@@ -1833,27 +1950,42 @@ def check_matmul(lib, dev, gen) -> dict:
           f"{out['tf32_max_abs_err']:.3e} ({out['tf32_tol_used']:.1f} of the "
           f"limit), is refused")
 
-    cases, as_bf16 = [], {}
+    cases, as_bf16, paths = [], {}, {}
 
-    def bf16_case(label, shape, point):
+    def bf16_case(label, shape, point, want="wgmma"):
         if shape not in as_bf16:
             as_bf16[shape] = tuple(t.to(torch.bfloat16) for t in args(shape))
         a, b = as_bf16[shape]
-        cases.append((f"{point} at {shape} {label}",
+        if path(a, b) != want:
+            fail(f"matmul bf16 at {shape} would take the {path(a, b)} path, not {want}")
+        paths[want] = paths.get(want, 0) + 1
+        cases.append((f"{point} at {shape} {label} ({want})",
                       lambda: matmul_cuda(a, b, point, lib=lib),
                       lambda: matmul_plain(a, b, point)))
 
+    # every instantiation at every ring depth on both paths: the wgmma
+    # kernel at a ragged shape TMA can describe (K and N multiples of 8,
+    # no multiple of any tile), the mma kernel at one it cannot
+    ragged_tma = (333, 456, 712)
     for i, sym in enumerate(bf16):
         dims = [int(v) for v in re.findall(r"\d+", sym.removesuffix("_bf16"))]
         for la in (0, 1, 2):
-            bf16_case("bf16 ragged", ragged, dict(zip(PHASE1, dims), order=("mn", "nm")[i % 2],
-                                                  scratch=(i // 2) % 2, lookahead=la))
+            point = dict(zip(PHASE1, dims), order=("mn", "nm")[i % 2],
+                         scratch=(i // 2) % 2, lookahead=la)
+            bf16_case("bf16 ragged", ragged_tma, point)
+            bf16_case("bf16 ragged", ragged, point, want="mma")
     for label, spec in handle_specs("matmul", BF16_RUNS, torch.bfloat16):
         shape = (spec["M"], spec["N"], spec["K"])
         space = make_space(*shape, dtype_bytes=2, vmem_kb=lib_capacity_kb(dev), hopper=True)
         for point in [DEFAULT_POINT, *list(space.iter_valid())[::271]]:
             bf16_case(f"bf16 {label}", shape, point)
+    before = dict(matmul_cuda.launches_by_path)
     out["bf16"] = check_cases("matmul bf16", cases, MATMUL_TOL)
+    launched = {p: matmul_cuda.launches_by_path.get(p, 0) - before.get(p, 0) for p in paths}
+    if launched != paths:
+        fail(f"matmul bf16 checks launched {launched} by path, expected {paths}")
+    out["bf16"]["checks_by_path"] = paths
+    print(f"matmul bf16 checks by path: {paths}")
     return out
 
 
@@ -1876,7 +2008,7 @@ def check_attention(lib, dev, gen) -> dict:
     import torch
 
     from repro_torch.kernels.attention.attention import (
-        BLOCK_KV, BLOCK_Q, HEAD_DIMS, flash_attention_cuda, flash_attention_plain)
+        BLOCK_KV, BLOCK_Q, HEAD_DIMS, flash_attention_cuda, flash_attention_plain, path)
     from repro_torch.kernels.attention.ops import make_space
 
     cases, inputs, per_dh = [], {}, {}
@@ -1955,27 +2087,43 @@ def check_attention(lib, dev, gen) -> dict:
         print(f"attention control: the plain version with TF32 products at "
               f"{shape}, max|err| {err:.3e} ({used:.1f} of the limit), is refused")
 
-    cases, per_dh, as_bf16 = [], {}, {}
+    cases, per_dh, as_bf16, paths = [], {}, {}, {}
 
-    def bf16_case(label, shape, point, **kw):
-        if shape not in as_bf16:
-            as_bf16[shape] = tuple(t.to(torch.bfloat16) for t in args(*shape))
-        q, k, v = as_bf16[shape]
+    def shifted(t):
+        """t's values one element past a 16-byte boundary: TMA cannot
+        describe the tensor, so the mma kernel serves it"""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return buf[1:].view(t.shape).copy_(t)
+
+    def bf16_case(label, shape, point, want="wgmma", **kw):
+        key = (shape, want)
+        if key not in as_bf16:
+            q, k, v = (t.to(torch.bfloat16) for t in args(*shape))
+            as_bf16[key] = (q, k, v) if want == "wgmma" else (q, shifted(k), shifted(v))
+        q, k, v = as_bf16[key]
+        if path(q, k, v) != want:
+            fail(f"attention bf16 at {shape} would take the {path(q, k, v)} path, not {want}")
+        paths[want] = paths.get(want, 0) + 1
         per_dh[shape[-1]] = per_dh.get(shape[-1], 0) + 1
-        cases.append((f"{point} {kw} at {shape} bf16 {label}",
+        cases.append((f"{point} {kw} at {shape} bf16 {label} ({want})",
                       lambda: flash_attention_cuda(q, k, v, point, lib=lib, **kw),
                       lambda: flash_attention_plain(q, k, v, point, **kw)))
 
+    # every instantiation at every ring depth, on both paths
     for dh in HEAD_DIMS:
         for i, (bq, bkv) in enumerate(blocks):
             point = {"block_q": bq, "block_kv": bkv}
-            for la in (0, 1, 2):
-                bf16_case("ragged", (2, 700, 700, 8, 2, dh), dict(point, lookahead=la))
-            bf16_case("offset", (1, 300, 1000, 8, 2, dh),
-                      dict(point, lookahead=(i + 1) % 3), q_offset=700)
-            bf16_case("small", (3, 150, 77, 4, 1, dh), dict(point, lookahead=(i + 2) % 3))
-        bf16_case("non-causal", (2, 200, 333, 8, 2, dh), {"block_q": 128, "block_kv": 256},
-                  causal=False)
+            for want in ("wgmma", "mma"):
+                for la in (0, 1, 2):
+                    bf16_case("ragged", (2, 700, 700, 8, 2, dh), dict(point, lookahead=la),
+                              want)
+                bf16_case("offset", (1, 300, 1000, 8, 2, dh),
+                          dict(point, lookahead=(i + 1) % 3), want, q_offset=700)
+                bf16_case("small", (3, 150, 77, 4, 1, dh),
+                          dict(point, lookahead=(i + 2) % 3), want)
+        for want in ("wgmma", "mma"):
+            bf16_case("non-causal", (2, 200, 333, 8, 2, dh),
+                      {"block_q": 128, "block_kv": 256}, want, causal=False)
     for label, spec in handle_specs("attention", BF16_RUNS, torch.bfloat16):
         shape = tuple(spec[k] for k in ("B", "Tq", "Tkv", "H", "Hk", "Dh"))
         space = make_space(spec["Tq"], spec["Tkv"], spec["Dh"], dtype_bytes=2,
@@ -1983,10 +2131,17 @@ def check_attention(lib, dev, gen) -> dict:
         points = {(p["block_q"], p["block_kv"], p["lookahead"]) for p in space.iter_valid()}
         for bq, bkv, la in sorted(points):
             bf16_case(label, shape, {"block_q": bq, "block_kv": bkv, "lookahead": la})
+    before = dict(flash_attention_cuda.launches_by_path)
     out["bf16"] = check_cases("attention bf16", cases, ATTENTION_BF16_TOL)
+    launched = {p: flash_attention_cuda.launches_by_path.get(p, 0) - before.get(p, 0)
+                for p in paths}
+    if launched != paths:
+        fail(f"attention bf16 checks launched {launched} by path, expected {paths}")
     out["bf16"]["checks_by_head_dim"] = per_dh
+    out["bf16"]["checks_by_path"] = paths
+    print(f"attention bf16 checks by path: {paths}")
     for shape in (serving, moe):
-        q, k, v = as_bf16[shape] if shape in as_bf16 else (
+        q, k, v = as_bf16[(shape, "wgmma")] if (shape, "wgmma") in as_bf16 else (
             t.to(torch.bfloat16) for t in args(*shape))
         # the plain version in 128-key blocks, so the unblocked route differs
         want = flash_attention_plain(q, k, v, {"block_q": 128, "block_kv": 128}).float()
@@ -3056,24 +3211,55 @@ def time_bf16(dev, gen, bf16_report) -> dict:
     """The bf16 matmul and attention at each of the bf16 phase's handle
     shapes (handle_specs over BF16_RUNS), at the point that
     model's handle served last (DEFAULT_POINT, or the step programs'
-    (512, 512) blocks, without the bf16 phase), beside the plain version,
-    one library call and the bound at the bf16 tensor cores' rate. The
-    library call: ``torch.mm`` with an fp32 output (``out_dtype``), as
+    (512, 512) blocks, without the bf16 phase), beside PR 21's mma.sync
+    kernels at the same points (``mma_ms``: the ``_bf16_mma`` symbols,
+    launched through the library as the wrapper would), the plain
+    version, one library call and the bound at the bf16 tensor cores'
+    rate; and rmsnorm on bf16 at the bf16 phase's rows and widths. The
+    library calls: ``torch.mm`` with an fp32 output (``out_dtype``), as
     the kernel writes; ``scaled_dot_product_attention`` on the same bf16
-    q, k and v (``enable_gqa``). Device times from CUDA-graph replays."""
+    q, k and v (``enable_gqa``); ``F.rms_norm`` on the same bf16 input.
+    Device times from CUDA-graph replays."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.attention import attention as attn_mod
     from repro_torch.kernels.attention.attention import (
         flash_attention_cuda, flash_attention_plain)
+    from repro_torch.kernels.matmul import matmul as mm_mod
     from repro_torch.kernels.matmul.matmul import matmul_cuda, matmul_plain
     from repro_torch.kernels.matmul.ops import DEFAULT_POINT as MM_DEFAULT
+    from repro_torch.kernels.rmsnorm.ops import DEFAULT_POINT as RN_DEFAULT
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
     bf16 = torch.bfloat16
+    mm_lib, at_lib = mm_mod.build_kernels(dev), attn_mod.build_kernels(dev)
     served = {}
     for arch, r in ((bf16_report or {}).get("runs") or {}).items():
         served[arch] = {n: k["best_point"] for n, k in r["requests"][-1]["kernels"].items()}
-    out = {"matmul": {}, "attention": {}}
+
+    def mm_mma(a, b, point):
+        """PR 21's kernel at ``point``: the mma path's symbol"""
+        M, K = a.shape
+        N = b.shape[1]
+        c = torch.empty((M, N), dtype=torch.float32, device=dev)
+        mm_lib.launch(mm_mod.symbol(point, bf16, "mma"), a.data_ptr(), b.data_ptr(),
+                      c.data_ptr(), M, N, K, mm_mod._ORDERS[point.get("order", "mn")],
+                      int(bool(point.get("scratch", 1))), int(point.get("lookahead", 1)),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        return c
+
+    def at_mma(q, k, v, point):
+        B, Tq, H, Dh = q.shape
+        _, Tkv, Hk, _ = k.shape
+        o = torch.empty_like(q)
+        at_lib.launch(attn_mod.symbol(point, Tq, Tkv, Dh, bf16, "mma"), q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Tq, Tkv, H, Hk, 1, 0,
+                      Dh ** -0.5, int(point.get("lookahead", 1)),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        return o
+
+    out = {"matmul": {}, "attention": {}, "rmsnorm": {}}
     for label, spec in handle_specs("matmul", BF16_RUNS, torch.bfloat16):
         M, N, K = spec["M"], spec["N"], spec["K"]
         a = torch.randn(M, K, generator=gen, device=dev).to(bf16)
@@ -3082,17 +3268,20 @@ def time_bf16(dev, gen, bf16_report) -> dict:
         lib_name = "torch.mm(out_dtype=float32)"
         row = {"ms": device_ms(lambda: matmul_cuda(a, b, point), reps=5),
                "default_ms": device_ms(lambda: matmul_cuda(a, b, MM_DEFAULT), reps=5),
+               "mma_ms": device_ms(lambda: mm_mma(a, b, point), reps=5),
+               "mma_default_ms": device_ms(lambda: mm_mma(a, b, MM_DEFAULT), reps=5),
                "plain_ms": device_ms(lambda: matmul_plain(a, b, point), reps=5),
                "library_ms": device_ms(lambda: torch.mm(a, b, out_dtype=torch.float32),
                                        reps=5), "library": lib_name,
-               "point": point, "shape": [M, N, K]}
+               "path": mm_mod.path(a, b), "point": point, "shape": [M, N, K]}
         row["bound_ms"], row["bound_by"] = bound(2.0 * M * N * K,
                                                  2.0 * (M * K + K * N) + 4.0 * M * N, bf16=True)
         out["matmul"][label] = row
         print(f"matmul bf16, {label} {row['shape']} (M, N, K): {row['ms']:.4f} ms at {point}, "
-              f"{row['default_ms']:.4f} at DEFAULT_POINT; bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}, bf16 tensor cores); plain {row['plain_ms']:.4f} ms; "
-              f"{lib_name} {row['library_ms']:.4f} ms")
+              f"{row['default_ms']:.4f} at DEFAULT_POINT ({row['path']}); PR 21's mma.sync "
+              f"kernel {row['mma_ms']:.4f}, {row['mma_default_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 tensor cores); plain "
+              f"{row['plain_ms']:.4f} ms; {lib_name} {row['library_ms']:.4f} ms")
         del a, b
     for label, spec in handle_specs("attention", BF16_RUNS, torch.bfloat16):
         B, T, H, Hk, Dh = spec["B"], spec["Tq"], spec["H"], spec["Hk"], spec["Dh"]
@@ -3104,20 +3293,60 @@ def time_bf16(dev, gen, bf16_report) -> dict:
         point = served.get(label.split()[0], {}).get("attention") or step_point
         row = {"ms": device_ms(lambda: flash_attention_cuda(q, k, v, point)),
                "untuned_ms": device_ms(lambda: flash_attention_cuda(q, k, v, step_point)),
+               "mma_ms": device_ms(lambda: at_mma(q, k, v, point)),
+               "mma_untuned_ms": device_ms(lambda: at_mma(q, k, v, step_point)),
                "plain_ms": device_ms(lambda: flash_attention_plain(q, k, v, point)),
                "library_ms": device_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=True, enable_gqa=True)),
                "library": "scaled_dot_product_attention (bf16)",
-               "point": point, "untuned_point": step_point, "shape": [B, T, H, Hk, Dh]}
+               "path": attn_mod.path(q, k, v), "point": point, "untuned_point": step_point,
+               "shape": [B, T, H, Hk, Dh]}
         row["bound_ms"], row["bound_by"] = bound(
             4.0 * B * H * T * T * Dh * 0.5, 2.0 * (2 * B * T * H + 2 * B * T * Hk) * Dh,
             bf16=True)
         out["attention"][label] = row
         print(f"attention bf16, {label} {row['shape']} (B, T, H, Hk, Dh): {row['ms']:.4f} ms "
-              f"at {point}, {row['untuned_ms']:.4f} at {step_point}; bound "
+              f"at {point}, {row['untuned_ms']:.4f} at {step_point} ({row['path']}); PR 21's "
+              f"mma.sync kernel {row['mma_ms']:.4f}, {row['mma_untuned_ms']:.4f}; bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}, bf16 tensor cores); plain "
               f"{row['plain_ms']:.4f} ms; SDPA {row['library_ms']:.4f} ms (graph replays)")
         del q, k, v, qt, kt, vt
+    # rmsnorm on bf16 at the bf16 phase's widths (deepseek-7b's d 4096,
+    # qwen3-moe's 2048), prefill's B T rows and decode's B, at the step
+    # programs' DEFAULT_POINT. A prefill row's replays rotate over a pool
+    # of inputs larger than the L2, so its input comes from HBM, as the
+    # byte bound assumes (as for the fp32 rows at d 1600)
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    widths = {}
+    for arch, batch, prompt, _, _ in BF16_RUNS:
+        from repro_torch.configs import get_config
+        widths.setdefault(get_config(arch).d_model, (arch, batch, prompt))
+    for d, (arch, batch, prompt) in widths.items():
+        for rows in (batch * prompt, batch):
+            nbytes = 2 * rows * d
+            n_pool = -(-3 * l2 // nbytes) if nbytes * 1000 > l2 else 1
+            pool = [(torch.randn(rows, d, generator=gen, device=dev).to(bf16),
+                     torch.randn(d, generator=gen, device=dev).to(bf16))
+                    for _ in range(n_pool)]
+
+            def rotated(fn, pool=pool, n_pool=n_pool):
+                turn = itertools.count()
+                return lambda: fn(*pool[next(turn) % n_pool])
+
+            row = {"ms": device_ms(rotated(lambda x, w: rmsnorm_cuda(x, w, RN_DEFAULT))),
+                   "plain_ms": device_ms(rotated(
+                       lambda x, w: rmsnorm_plain(x, w, RN_DEFAULT))),
+                   "library_ms": device_ms(rotated(
+                       lambda x, w, d=d: F.rms_norm(x, (d,), w, eps=1e-6))),
+                   "library": "F.rms_norm (bf16)", "point": RN_DEFAULT,
+                   "shape": [rows, d], "arch": arch, "input_pool": n_pool, "l2_bytes": l2}
+            row["bound_ms"], row["bound_by"] = bound(4.0 * rows * d, 2.0 * (2 * rows * d + d))
+            out["rmsnorm"][f"{rows}x{d}"] = row
+            print(f"rmsnorm bf16, {arch} {row['shape']}: {row['ms']:.5f} ms (bound "
+                  f"{row['bound_ms']:.5f} ms, {row['bound_by']}); plain {row['plain_ms']:.4f} "
+                  f"ms; F.rms_norm {row['library_ms']:.5f} ms (graph replays over a pool of "
+                  f"{n_pool} inputs)")
+            del pool
     return out
 
 
@@ -3370,6 +3599,8 @@ def main(argv=None) -> int:
 
     if only != set(PHASES):
         save()
+        print(f"chip_smoke: {report['seconds']:.1f} s in all, the builds "
+              f"{report['builds']['wall_s']:.1f} s of it")
         print(f"phases {sorted(only)} done; no verdict for a subset")
         return 0
 
@@ -3488,9 +3719,30 @@ def main(argv=None) -> int:
             "controls_tol_used": {k: v for k, v in chk.items()
                                   if k.startswith(("fp8_control", "unblocked"))},
             "launches_by_arch": {a: r["launches_by_dtype"] for a, r in
-                                 bf16_report["runs"].items()}})
+                                 bf16_report["runs"].items()},
+            # the wgmma kernel's time beside PR 21's mma.sync kernel at the
+            # same point, the launches by path and the checks on each path
+            "path": t["path"], "mma_ms": t["mma_ms"],
+            "launches_by_path": bf16_report["launches_by_path"][
+                name.removesuffix("_bf16")],
+            "checks_by_path": chk["checks_by_path"],
+            "sass": report["builds"]["wgmma_sass"][key]})
+    # rmsnorm's bf16 instantiations (not redesigned): the bf16 phase's
+    # launches, times at deepseek-7b's prefill rows
+    rows_rn = report["times_bf16"]["rmsnorm"]
+    t, chk = next(iter(rows_rn.values())), checks["rmsnorm"]["by_type"]["bfloat16"]
+    kernels.append({
+        "name": "rmsnorm_bf16", "route": "cuda", "source": RMSNORM_SRC,
+        "replaces": RMSNORM_TPU, "launches": bf16_report["launches_bf16"]["rmsnorm"],
+        "max_abs_err": chk["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"], "library": t["library"], "point": t["point"],
+        "shape": t["shape"], "checks": chk["checks"], "tolerance": RMSNORM_BF16_TOL,
+        "tol_used": chk["tol_used"], "by_shape": rows_rn})
     report["kernels"] = kernels
     save()
+    print(f"chip_smoke: {report['seconds']:.1f} s in all, the builds "
+          f"{report['builds']['wall_s']:.1f} s of it")
     print(card)
     print(json.dumps({"kernels": kernels}, default=str))
     print(json.dumps({"ok": True, "device": {

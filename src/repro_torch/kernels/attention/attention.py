@@ -13,24 +13,42 @@ with the same tuning point:
 Layout: q (B, Tq, H, Dh), k/v (B, Tkv, Hk, Dh) with H = G·Hk, read in
 place (no transposed copies); the kv head of q head h is h // G.
 
-The kernel is CUDA C++ (``csrc/attention.cuh``; its header comment is
-the design note): on the tensor cores (``mma.sync``), 3xTF32 products
-for fp32 inputs (fp32 accuracy) and bf16 products for bf16 inputs (P
-rounded to bf16 before P·V and the output written in bf16, as the
-reference's kernel does at bf16), K and V staged by ``cp.async``, a
-per-warp causal skip. The input type, head dim, ``block_q`` and
-``block_kv`` are template parameters, one instantiation per combination
-(Dh 16, 64 and 128, the head dims of the reduced configs, of the
-64-wide families and of deepseek-7b: 45 a type), all built once into
-one shared library; the launcher picks by q's type and last dim and
-raises at a type or Dh it has no instantiation for. A block clamped to the sequence, as
+The kernels are CUDA C++ (``csrc/attention.cuh``; its header comment is
+the design note). Three paths, chosen by :func:`path` from the tensors
+before the launch (never after a failure):
+
+  ``tf32x3`` — fp32 inputs: 3xTF32 products on ``mma.sync`` (fp32
+               accuracy), K and V staged by ``cp.async``, a per-warp
+               causal skip;
+  ``wgmma``  — bf16 inputs that TMA can describe (q, k and v 16-byte
+               aligned): FA3's shape, a producer warp's TMA loads of the
+               q tile and of 64- or 128-key K and V tiles into a ring of
+               mbarrier stages, two consumer warpgroups of 64 q rows on
+               ``wgmma`` (S = Q K^T from shared memory, P from registers
+               for P V), a persistent grid that takes the heaviest causal
+               q tiles first;
+  ``mma``    — other bf16 inputs: bf16 products on ``mma.sync``.
+
+At bf16, P is rounded to bf16 before P·V and the output is written in
+bf16, as the reference's kernel does. The input type, head dim,
+``block_q`` and ``block_kv`` are template parameters, one instantiation
+per combination (Dh 16, 64 and 128, the head dims of the reduced
+configs, of the 64-wide families and of deepseek-7b: 45 a type and
+path), all built once into one shared library; the launcher picks by
+q's type and last dim and raises at a type or Dh it has no
+instantiation for. A block clamped to the sequence, as
 ``flash_attention_pallas`` clamps ``min(block, T)``, is served by the
 smallest instantiated block that covers the sequence: one tile either
 way. A block below the smallest instantiation (``block_q`` 64 or 32 of
 the training and prefill step-programs' chunks, ``block_kv`` 32) is
 served by that smallest one: the same hand kernel and the same function,
-not a plain fallback. ``block_q`` only sets how many 128-row iterations
-a block walks, and ``block_kv`` changes no slice the kernel computes.
+not a plain fallback. On the ``tf32x3`` and ``mma`` paths ``block_q``
+only sets how many 128-row iterations a block walks, and ``block_kv``
+changes no slice the kernel computes; on the ``wgmma`` path ``block_q``
+is the persistent walk's item (its 128-row units run back to back) and
+``block_kv`` 64 takes 64-key tiles, any larger one 128-key tiles.
+``flash_attention_cuda.launches_by_path`` counts the launches of each
+path.
 
 ``flash_attention_plain`` is the same function in plain PyTorch (the
 chunked online softmax of ``ops.flash_attention_torch`` with the point's
@@ -68,12 +86,15 @@ BLOCK_KV = (64, 128, 256, 512, 1024)
 HEAD_DIMS = (16, 64, 128)
 #: input type -> symbol suffix (fp32's symbols carry none)
 _TYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
+#: bf16 path -> symbol suffix after ``_bf16``
+_BF16_PATHS = {"wgmma": "", "mma": "_mma"}
 
 
 def stage_bytes(Dh: int, dtype_bytes: int = 4) -> int:
-    """Shared memory of one ring stage (csrc/attention.cuh
-    ``stage_bytes<DH>``): 32 keys of K and of V as copied; bf16 rows are
-    padded to Dh + 8 values (``stage_bytes_bf16<DH>``)."""
+    """Shared memory of one ring stage of the ``tf32x3`` and ``mma``
+    kernels (csrc/attention.cuh ``stage_bytes<DH>``): 32 keys of K and
+    of V as copied; bf16 rows are padded to Dh + 8 values
+    (``stage_bytes_bf16<DH>``)."""
     if dtype_bytes == 2:
         return 2 * 2 * 32 * (Dh + 8)
     return 4 * 2 * 32 * Dh
@@ -85,17 +106,30 @@ def split_bytes(Dh: int) -> int:
     return 8 * 2 * 32 * (Dh + 4)
 
 
-def smem_bytes(point: Point, Dh: int, dtype_bytes: int = 4) -> int:
+def kv_tile(point: Point) -> int:
+    """Keys of the ``wgmma`` kernel's K and V tiles
+    (``attention::wg::kv_tile``): 64 at ``block_kv`` 64, else 128."""
+    return 64 if int(point["block_kv"]) < 128 else 128
+
+
+def smem_bytes(point: Point, Dh: int, dtype_bytes: int = 4,
+               path: str | None = None) -> int:
     """Shared memory of one block at ``point``, head dim ``Dh`` and inputs
-    of ``dtype_bytes``: ``lookahead + 1`` stages, and for fp32 the split
-    slice."""
-    stages = (int(point.get("lookahead", 1)) + 1) * stage_bytes(Dh, dtype_bytes)
+    of ``dtype_bytes``, on ``path`` (bf16 defaults to ``wgmma``, the one
+    the main path takes). ``wgmma`` (``attention::wg::smem_bytes``): the
+    128-row q tile, ``lookahead + 1`` stages of a K and a V tile, 128
+    bytes of barriers and 1024 to align them. ``tf32x3`` and ``mma``:
+    ``lookahead + 1`` 32-key stages, and for fp32 the split slice."""
+    la = int(point.get("lookahead", 1))
+    if dtype_bytes == 2 and (path or "wgmma") == "wgmma":
+        return 1024 + 128 + 2 * 128 * Dh + (la + 1) * 2 * 2 * kv_tile(point) * Dh
+    stages = (la + 1) * stage_bytes(Dh, dtype_bytes)
     return stages if dtype_bytes == 2 else stages + split_bytes(Dh)
 
 
-#: the largest footprint (fp32 at Dh 128: three stages and the split
-#: slice, 162 kB; bf16's largest is 51 kB)
-SMEM_BYTES = smem_bytes({"lookahead": 2}, max(HEAD_DIMS))
+#: the largest footprint (bf16's wgmma kernel at Dh 128: the q tile and
+#: three stages of 128-key tiles, 225 kB; fp32's largest is 162 kB)
+SMEM_BYTES = smem_bytes({"block_kv": 128, "lookahead": 2}, max(HEAD_DIMS), 2)
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -118,10 +152,27 @@ def _block(value: int, extent: int, options: tuple[int, ...]) -> int:
         f"instantiated blocks are {options}")
 
 
+def bf16_path(*ptrs: int) -> str:
+    """The bf16 path for q, k and v at these addresses: ``wgmma`` where
+    TMA can describe them (bases 16-byte aligned; their rows, ``H * Dh``
+    and ``Hk * Dh`` values at an instantiated Dh, are multiples of 16
+    bytes), else ``mma``."""
+    return "wgmma" if all(p % 16 == 0 for p in ptrs) else "mma"
+
+
+def path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The path ``flash_attention_cuda`` launches for these tensors:
+    ``tf32x3`` for fp32, :func:`bf16_path` for bf16."""
+    if q.dtype == torch.float32:
+        return "tf32x3"
+    return bf16_path(q.data_ptr(), k.data_ptr(), v.data_ptr())
+
+
 def symbol(point: Point, Tq: int, Tkv: int, Dh: int,
-           dtype: torch.dtype = torch.float32) -> str:
+           dtype: torch.dtype = torch.float32, path: str = "wgmma") -> str:
     """Exported C name of the instantiation serving ``point`` at these
-    sequence lengths, head dim and input type."""
+    sequence lengths, head dim and input type (for bf16, on ``path``:
+    ``wgmma`` or ``mma``)."""
     if Dh not in HEAD_DIMS:
         raise KeyError(
             f"no attention instantiation for head dim {Dh}: instantiated head "
@@ -131,15 +182,17 @@ def symbol(point: Point, Tq: int, Tkv: int, Dh: int,
                        f"input types are {tuple(_TYPES)}")
     bq = _block(point["block_q"], Tq, BLOCK_Q)
     bkv = _block(point["block_kv"], Tkv, BLOCK_KV)
-    return f"attention_dh{Dh}_bq{bq}_bkv{bkv}{_TYPES[dtype]}"
+    sfx = _TYPES[dtype] + (_BF16_PATHS[path] if dtype == torch.bfloat16 else "")
+    return f"attention_dh{Dh}_bq{bq}_bkv{bkv}{sfx}"
 
 
 def instantiations() -> dict[str, str]:
-    """Symbol -> instantiation line of every (type, Dh, block_q,
+    """Symbol -> instantiation line of every (type and path, Dh, block_q,
     block_kv)."""
-    return {f"attention_dh{dh}_bq{bq}_bkv{bkv}{sfx}":
-            f"ATTENTION_INSTANTIATE{sfx.upper()}({dh}, {bq}, {bkv})"
-            for sfx in _TYPES.values()
+    lines = {"": "ATTENTION_INSTANTIATE", "_bf16": "ATTENTION_INSTANTIATE_BF16",
+             "_bf16_mma": "ATTENTION_INSTANTIATE_BF16_MMA"}
+    return {f"attention_dh{dh}_bq{bq}_bkv{bkv}{sfx}": f"{macro}({dh}, {bq}, {bkv})"
+            for sfx, macro in lines.items()
             for dh in HEAD_DIMS for bq in BLOCK_Q for bkv in BLOCK_KV}
 
 
@@ -156,7 +209,7 @@ def build_kernels(device: "torch.device | str | None" = None) -> KernelLibrary:
 def _library() -> KernelLibrary:
     # memoised: the wrapper asks for it on every launch given no library
     return load_family("attention", CSRC, "attention.cuh", instantiations(),
-                       _ARGTYPES, n_units=12)
+                       _ARGTYPES, n_units=16)
 
 
 def flash_attention_cuda(
@@ -168,10 +221,11 @@ def flash_attention_cuda(
     -> (B, Tq, H, Dh) in q's type (fp32 or bf16, all three of one type).
 
     On CUDA tensors: checks the arguments, launches the instantiation for
-    ``point``, q's type and head dim on the current stream, checks the
-    launch status and counts the launch in ``flash_attention_cuda.launches``
-    (and by type and head dim in ``.launches_by_dtype``). On CPU tensors:
-    the plain version.
+    ``point``, q's type, head dim and :func:`path` on the current stream,
+    checks the launch status and counts the launch in
+    ``flash_attention_cuda.launches`` (by type and head dim in
+    ``.launches_by_dtype``, by path in ``.launches_by_path``). On CPU
+    tensors: the plain version.
     """
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, point, causal=causal, scale=scale,
@@ -206,19 +260,24 @@ def flash_attention_cuda(
     scale = float(scale if scale is not None else Dh ** -0.5)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    lib.launch(symbol(point, Tq, Tkv, Dh, q.dtype), q.data_ptr(), k.data_ptr(),
+    route = path(q, k, v)
+    lib.launch(symbol(point, Tq, Tkv, Dh, q.dtype, route), q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), B, Tq, Tkv, H, Hk, int(bool(causal)),
                int(q_offset), scale, lookahead, stream)
     flash_attention_cuda.launches += 1
     by_type = flash_attention_cuda.launches_by_dtype.setdefault(
         str(q.dtype).removeprefix("torch."), {})
     by_type[Dh] = by_type.get(Dh, 0) + 1
+    by_path = flash_attention_cuda.launches_by_path
+    by_path[route] = by_path.get(route, 0) + 1
     return out
 
 
 flash_attention_cuda.launches = 0
 #: the launches above, split by input type ("float32", "bfloat16"), then head dim
 flash_attention_cuda.launches_by_dtype = {}
+#: and by path ("tf32x3", "wgmma", "mma")
+flash_attention_cuda.launches_by_path = {}
 
 
 def flash_attention_plain(
@@ -266,5 +325,6 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 
 __all__ = ["BLOCK_KV", "BLOCK_Q", "FlashAttentionFunction", "HEAD_DIMS", "SMEM_BYTES",
-           "build_kernels", "flash_attention_cuda", "flash_attention_plain",
-           "instantiations", "smem_bytes", "split_bytes", "stage_bytes", "symbol"]
+           "bf16_path", "build_kernels", "flash_attention_cuda", "flash_attention_plain",
+           "instantiations", "kv_tile", "path", "smem_bytes", "split_bytes",
+           "stage_bytes", "symbol"]

@@ -1,6 +1,8 @@
 // Causal flash attention (blockwise online softmax) on Hopper, GQA-aware,
-// on the tensor cores: fp32 inputs in 3xTF32, bf16 inputs in bf16
-// (`flash_kernel_bf16`, below the fp32 kernel, has its own note).
+// on the tensor cores: fp32 inputs in 3xTF32, bf16 inputs in bf16 (two
+// kernels, each with its own note below the fp32 kernel:
+// `wg::flash_wgmma` on wgmma and TMA, and `flash_kernel_bf16` on
+// mma.sync for tensors TMA cannot describe).
 //
 //   out[b, t, h, :] = softmax_s(q[b, t, h, :] . k[b, s, h / G, :] * scale
 //                               + mask) @ v[b, :, h / G, :]
@@ -80,7 +82,7 @@
 // Precision: plain TF32 (one product) is never used. chip_smoke.py reads
 // 0.34 of its limit (rtol 1e-5, atol 1e-5) over every instantiation;
 // TF32 products read 134 times it.
-// Left for later: wgmma (TF32 only K-major from shared memory, so V would
+// Left for later in fp32: wgmma (TF32 only K-major from shared memory, so V would
 // need a transposing stage), TMA copies, warp specialisation.
 #pragma once
 
@@ -376,7 +378,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The bf16 input class: q, k, v and out bf16, everything else as above
+// `flash_kernel_bf16` (symbols `_bf16_mma`), the bf16 kernel for tensors
+// TMA cannot describe: q, k, v and out bf16, everything else as above
 // (fp32 scores, masks, running max and sum, expf, fp32 accumulators).
 // One m16n8k16 bf16 product (sm90::mma_bf16_m16n8k16, exact products)
 // for S = Q K^T and one for P V: no split, no split slice. P is rounded
@@ -587,15 +590,347 @@ int launch(const T* q, const T* k, const T* v, T* out, int B,
   }
 }
 
+// ------------------------------------ the bf16 wgmma kernel (path "wgmma")
+// `wg::flash_wgmma` (symbols `_bf16`), for q, k and v that TMA can describe
+// (16-byte aligned; their rows, H * Dh and Hk * Dh values, always are):
+// FA3's shape on Hopper's own machinery, the same function as
+// `flash_kernel_bf16` above. Its bound is unchanged (deepseek-7b's
+// prefill: 0.0087 ms of bf16 products against 0.020 ms of bytes).
+//   * A persistent grid of at most as many blocks as are resident on the
+//     SMs walks items of (b, h, block_q rows), the last q tiles first
+//     (the heaviest when causal: `sched` is inert, this order is the
+//     kernel's own), each item in 128-row units, its last unit first.
+//   * A block is a producer warpgroup (setmaxnreg: 40 registers; at 24 its
+//     walk spilled) and two consumer warpgroups of 64 q rows each (232).
+//     One producer thread
+//     loads a unit's q tile by TMA into its own buffer (full and empty
+//     mbarriers), then K and V tiles of 64 keys (block_kv 64) or 128 (any
+//     larger block_kv) into a ring of `lookahead + 1` stages, each with a
+//     K-full, a V-full and an empty mbarrier, so S can start before V has
+//     landed. Boxes are one head's rows of 16 or 64 values (Dh 128 takes
+//     two boxes a tile: the encoder refuses a box wider than the 128-byte
+//     swizzle), swizzled over their 32 or 128 bytes; TMA fills zeros past
+//     Tq and Tkv, so the ragged q tile and kv tail need no masked copy.
+//   * S = Q K^T by wgmma m64nKTk16 (sm90::Wgmma<KT>::ss), Q and K both
+//     K-major (Dh contiguous) from shared memory; the mask (causal with
+//     q_offset, keys past Tkv, -1e30), the scale and the online softmax
+//     (expf, quad shuffles for the rows' max and sum) on the accumulator
+//     layout in registers; P packed to bf16 (cvt.rn.bf16x2) straight from
+//     the accumulators into wgmma's register A operand; O += P V by
+//     wgmma m64nDHk16 (sm90::Wgmma<DH>::rs), V MN-major from shared
+//     memory (the descriptor's transpose bit). The row sums take the
+//     unrounded p; the output is O / l rounded to bf16, written from
+//     registers.
+//   * The two consumer warpgroups interleave on the tensor cores: one
+//     runs its softmax while the other's products run. Only tiles that
+//     reach the diagonal or the kv tail are masked element by element.
+// What still holds it back: the softmax's fp32 work on the CUDA cores
+// (expf, the mask, the max and sum) between a warpgroup's products; S,
+// the softmax and P V run one after the other inside a warpgroup (FA3's
+// pipelining, the next tile's S issued before this tile's P V, was
+// slower here in a trial, with two P tiles live in registers); the q
+// buffer is loaded only once both warpgroups are done with the previous
+// unit; diagonal tiles are computed whole and masked.
+namespace wg {
+
+constexpr int kThreads = 384;       // a producer warpgroup and two consumer warpgroups
+constexpr int kRows = 128;          // q rows of a unit: 64 for each consumer warpgroup
+constexpr int kBarrierBytes = 128;  // q full/empty, and k full, v full, empty for <= 3 stages
+
+// keys of a K (and V) tile: 64 at block_kv 64, else 128
+template <int BKV>
+__host__ __device__ constexpr int kv_tile() { return BKV < 128 ? 64 : 128; }
+// values of a TMA box's row (16 or 64: at most one 128-byte swizzle span)
+// and that row's bytes, the swizzle span
+template <int DH>
+__host__ __device__ constexpr int box_d() { return DH < 64 ? DH : 64; }
+template <int DH>
+__host__ __device__ constexpr int span() { return 2 * box_d<DH>(); }
+// one ring stage: a K and a V tile
+template <int DH, int BKV>
+__host__ __device__ constexpr size_t stage_bytes() { return 2 * 2 * (size_t)kv_tile<BKV>() * DH; }
+// the dynamic shared memory a block asks for: the q tile of a unit, the
+// ring, its barriers, and room to align everything to 1024 bytes
+template <int DH, int BKV>
+__host__ __device__ constexpr size_t smem_bytes(int lookahead) {
+  return 1024 + kBarrierBytes + 2 * (size_t)kRows * DH +
+         (size_t)(lookahead + 1) * stage_bytes<DH, BKV>();
+}
+
+template <int DH, int BQ, int BKV>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, bf16_t* __restrict__ out, int B, int Tq,
+            int Tkv, int H, int Hk, int causal, int q_offset, float scale, int stages) {
+  constexpr int KT = kv_tile<BKV>(), BX = box_d<DH>(), SW = span<DH>(), NC = DH / BX;
+  constexpr int kQ = kRows * DH;   // elements of the q tile
+  constexpr int kKV = KT * DH;     // elements of a K (or V) tile
+  constexpr int kUnits = BQ / kRows;
+  static_assert(DH % 16 == 0 && DH % BX == 0, "the head dim is whole boxes of k16 steps");
+  static_assert(BQ % kRows == 0, "block_q is a whole number of 128-row units");
+  extern __shared__ __align__(16) float smem[];
+  bf16_t* const qs = reinterpret_cast<bf16_t*>(
+      reinterpret_cast<char*>(smem) + ((1024 - (sm90::smem_addr(smem) & 1023)) & 1023));
+  bf16_t* const ring = qs + kQ;  // stage s: K at ring + 2 s kKV, V after it
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * 2 * kKV);
+  uint64_t* const q_empty = q_full + 1;
+  uint64_t* const k_full = q_full + 2;
+  uint64_t* const v_full = k_full + stages;
+  uint64_t* const empty = v_full + stages;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    sm90::mbar_init(q_empty, 2);  // one arrival from each consumer warpgroup
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], 2);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int n_qt = (Tq + BQ - 1) / BQ, n_kt = (Tkv + KT - 1) / KT;
+  const int n_items = B * H * n_qt;
+  // item x's u-th unit: the last q tiles (the heaviest when causal) first
+  auto unit = [&](int x, int u, int& b, int& h, int& q0) {
+    const int bh = x % (B * H);
+    b = bh / H;
+    h = bh % H;
+    q0 = (n_qt - 1 - x / (B * H)) * BQ + u * kRows;
+  };
+  // the kv tiles a unit's rows can see
+  auto visible = [&](int q0) {
+    const int last = min(q0 + kRows, Tq) - 1;
+    return causal ? min(n_kt, (q_offset + last) / KT + 1) : n_kt;
+  };
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (wg == 0) {
+    // the producer: one thread loads each unit's q tile, then its K and V tiles
+    sm90::setmaxnreg_dec<40>();
+    if (t == 0) {
+      int it = 0, qi = 0;
+      for (int x = blockIdx.x; x < n_items; x += gridDim.x)
+        for (int u = kUnits - 1; u >= 0; --u) {
+          int b, h, q0;
+          unit(x, u, b, h, q0);
+          if (q0 >= Tq) continue;
+          const int hk = h / (H / Hk);
+          sm90::mbar_wait(q_empty, (qi++ & 1) ^ 1);
+          sm90::mbar_arrive_expect_tx(q_full, 2 * kQ);
+#pragma unroll
+          for (int c = 0; c < NC; ++c)
+            sm90::tma_load_4d(qs + c * kRows * BX, &tq, q_full, c * BX, h, q0, b);
+          const int n = visible(q0);
+          for (int kt = 0; kt < n; ++kt, ++it) {
+            const int st = it % stages;
+            sm90::mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+            bf16_t* ks = ring + (size_t)st * 2 * kKV;
+            sm90::mbar_arrive_expect_tx(&k_full[st], 2 * kKV);
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+              sm90::tma_load_4d(ks + c * KT * BX, &tk, &k_full[st], c * BX, hk, kt * KT, b);
+            sm90::mbar_arrive_expect_tx(&v_full[st], 2 * kKV);
+#pragma unroll
+            for (int c = 0; c < NC; ++c)
+              sm90::tma_load_4d(ks + kKV + c * KT * BX, &tv, &v_full[st], c * BX, hk, kt * KT,
+                                b);
+          }
+        }
+    }
+  } else {
+    // a consumer: 64 q rows of each unit
+    sm90::setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int warp = t / 32, g = (t % 32) / 4, qd = t % 4;
+    const bf16_t* const qw = qs + 64 * cw * BX;  // this warpgroup's rows of every q box
+    float sacc[KT / 2], o[DH / 2], m[2], l[2];
+    uint32_t pa[KT / 16][4];  // P, rounded to bf16, in the register A operand's layout
+
+    // S = Q K^T of the tile in stage st: 64 rows x KT keys, Q and K both
+    // K-major in shared memory
+    auto issue_s = [&](int st) {
+      const bf16_t* ks = ring + (size_t)st * 2 * kKV;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < DH / 16; ++s) {
+        const int c = s * 16 / BX, kin = s * 16 % BX;
+        sm90::Wgmma<KT>::template ss<0>(
+            sacc, sm90::smem_desc(qw + c * kRows * BX + kin, 0, 8 * SW, SW),
+            sm90::smem_desc(ks + c * KT * BX + kin, 0, 8 * SW, SW), s > 0 ? 1 : 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // O += P V with P from registers, V MN-major (Dh contiguous) in shared memory
+    auto issue_pv = [&](int st) {
+      const bf16_t* vs = ring + (size_t)st * 2 * kKV + kKV;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        sm90::Wgmma<DH>::template rs<1>(
+            o, pa[kk], sm90::smem_desc(vs + kk * 16 * BX, KT * SW, 8 * SW, SW), 1);
+      sm90::wgmma_commit();
+    };
+    // tile kt's scores in sacc: mask (where the tile reaches the diagonal
+    // or the kv tail), scale, and the online softmax per row (rows r0 and
+    // r0 + 8: a row's keys lie in the four threads of a quad); O rescaled;
+    // P rounded to bf16 into pa, in the register A operand's layout (keys
+    // 16kk + 2q, +1 and +8, +9)
+    auto softmax = [&](int kt, int r0, int row_lo) {
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) sm90::fence_operand(sacc[i]);
+      const bool masked = (causal && kt * KT + KT - 1 > q_offset + row_lo) ||
+                          kt * KT + KT > Tkv;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < KT / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float xv = sacc[4 * j + i] * scale;
+          if (masked) {
+            const int kpos = kt * KT + 8 * j + 2 * qd + (i & 1);
+            const int qpos = q_offset + r0 + 8 * (i >> 1);
+            if ((causal && qpos < kpos) || kpos >= Tkv) xv = kNegInf;
+          }
+          sacc[4 * j + i] = xv;
+          mx[i >> 1] = fmaxf(mx[i >> 1], xv);
+        }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < KT / 2; ++i) {
+        const float p = expf(sacc[i] - m[(i >> 1) & 1]);
+        sacc[i] = p;
+        sum[(i >> 1) & 1] += p;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < DH / 2; ++i) {
+        sm90::fence_operand(o[i]);
+        o[i] *= alpha[(i >> 1) & 1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = sm90::pack_bf16x2(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+    };
+
+    int it = 0, qi = 0;
+    for (int x = blockIdx.x; x < n_items; x += gridDim.x)
+      for (int u = kUnits - 1; u >= 0; --u) {
+        int b, h, q0;
+        unit(x, u, b, h, q0);
+        if (q0 >= Tq) continue;
+        const int row_lo = q0 + 64 * cw;              // this warpgroup's first row
+        const int r0 = row_lo + 16 * warp + g;        // this thread's rows: r0, r0 + 8
+        sm90::mbar_wait(q_full, qi++ & 1);
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+        m[0] = m[1] = kNegInf;
+        l[0] = l[1] = 0.f;
+        const int n = visible(q0);
+        // one tile at a time: S, the softmax, P V; the two consumer
+        // warpgroups interleave on the tensor cores
+        for (int kt = 0; kt < n; ++kt, ++it) {
+          const int st = it % stages;
+          const uint32_t ph = (it / stages) & 1;
+          sm90::mbar_wait(&k_full[st], ph);
+          issue_s(st);
+          sm90::wgmma_wait<0>();
+          softmax(kt, r0, row_lo);
+          sm90::mbar_wait(&v_full[st], ph);
+          issue_pv(st);
+          sm90::wgmma_wait<0>();
+          if (t == 0) sm90::mbar_arrive(&empty[st]);
+        }
+        if (t == 0) sm90::mbar_arrive(q_empty);  // every S of the unit is done
+#pragma unroll
+        for (int i = 0; i < DH / 2; ++i) sm90::fence_operand(o[i]);
+
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r0 + 8 * r;
+          if (row >= Tq) continue;
+          const float lr = fmaxf(l[r], 1e-30f);
+          bf16_t* dst = out + (((size_t)b * Tq + row) * H + h) * DH + 2 * qd;
+#pragma unroll
+          for (int j = 0; j < DH / 8; ++j)
+            *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+                sm90::pack_bf16x2(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr);
+        }
+      }
+  }
+}
+
+// Host launcher: 4-d tensor maps (Dh, heads, positions, batch) of q, k and
+// v, boxes of one head's 16- or 64-value rows, swizzled over their span;
+// a persistent grid of at most the blocks resident on all SMs. The caller
+// guarantees what TMA needs: q, k and v 16-byte aligned.
+template <int DH, int BQ, int BKV>
+int launch(const bf16_t* q, const bf16_t* k, const bf16_t* v, bf16_t* out, int B, int Tq,
+           int Tkv, int H, int Hk, int causal, int q_offset, float scale, int lookahead,
+           void* stream) {
+  if (lookahead < 0 || lookahead > 2) return (int)cudaErrorInvalidValue;
+  constexpr int BX = box_d<DH>();
+  CUtensorMap tq, tk, tv;
+  const uint64_t q_dims[4] = {(uint64_t)DH, (uint64_t)H, (uint64_t)Tq, (uint64_t)B};
+  const uint64_t q_strides[3] = {2ull * DH, 2ull * H * DH, 2ull * Tq * H * DH};
+  const uint32_t q_box[4] = {BX, 1, kRows, 1};
+  int rc = sm90::make_tile_map(&tq, q, 4, q_dims, q_strides, q_box, span<DH>());
+  const uint64_t kv_dims[4] = {(uint64_t)DH, (uint64_t)Hk, (uint64_t)Tkv, (uint64_t)B};
+  const uint64_t kv_strides[3] = {2ull * DH, 2ull * Hk * DH, 2ull * Tkv * Hk * DH};
+  const uint32_t kv_box[4] = {BX, 1, (uint32_t)kv_tile<BKV>(), 1};
+  if (rc == 0) rc = sm90::make_tile_map(&tk, k, 4, kv_dims, kv_strides, kv_box, span<DH>());
+  if (rc == 0) rc = sm90::make_tile_map(&tv, v, 4, kv_dims, kv_strides, kv_box, span<DH>());
+  if (rc != 0) return rc;
+  const auto kernel = flash_wgmma<DH, BQ, BKV>;
+  const size_t smem = smem_bytes<DH, BKV>(lookahead);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long items = (long long)B * H * ((Tq + BQ - 1) / BQ);
+  if (items <= 0) return (int)cudaSuccess;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const long long fill = (long long)sms * per_sm;
+  const long long blocks = items < fill ? items : fill;
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, out, B, Tq, Tkv, H, Hk, causal, q_offset, scale, lookahead + 1);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace attention
 
-// Two exported C symbols per instantiation and type (fp32 without a
-// suffix, bf16 q, k, v and out with `_bf16`):
-//   int attention_dh<DH>_bq<BQ>_bkv<BKV>[_bf16](q, k, v, out, B, Tq, Tkv,
-//                                 H, Hk, causal, q_offset, scale,
+// Exported C symbols per instantiation and type (fp32 without a suffix;
+// bf16 q, k, v and out with `_bf16`, the wgmma kernel, or `_bf16_mma`, the
+// mma.sync kernel for tensors TMA cannot describe):
+//   int attention_dh<DH>_bq<BQ>_bkv<BKV>[_bf16|_bf16_mma](q, k, v, out, B,
+//                                 Tq, Tkv, H, Hk, causal, q_offset, scale,
 //                                 lookahead, stream)
-//   long long attention_dh<DH>_bq<BQ>_bkv<BKV>[_bf16]_smem(lookahead): the
-//     dynamic shared memory of one block, as the launcher asks for it
+//   long long attention_dh<DH>_bq<BQ>_bkv<BKV>[_bf16|_bf16_mma]_smem(lookahead):
+//     the dynamic shared memory of one block, as the launcher asks for it
 #define ATTENTION_INSTANTIATE_T(DH, BQ, BKV, T, SFX)                                    \
   extern "C" int attention_dh##DH##_bq##BQ##_bkv##BKV##SFX(                             \
       const T* q, const T* k, const T* v, T* out, int B, int Tq, int Tkv, int H,        \
@@ -607,5 +942,16 @@ int launch(const T* q, const T* k, const T* v, T* out, int B,
     return (long long)attention::smem_bytes<DH, T>(lookahead);                          \
   }
 #define ATTENTION_INSTANTIATE(DH, BQ, BKV) ATTENTION_INSTANTIATE_T(DH, BQ, BKV, float, )
-#define ATTENTION_INSTANTIATE_BF16(DH, BQ, BKV) \
-  ATTENTION_INSTANTIATE_T(DH, BQ, BKV, attention::bf16_t, _bf16)
+#define ATTENTION_INSTANTIATE_BF16_MMA(DH, BQ, BKV) \
+  ATTENTION_INSTANTIATE_T(DH, BQ, BKV, attention::bf16_t, _bf16_mma)
+#define ATTENTION_INSTANTIATE_BF16(DH, BQ, BKV)                                          \
+  extern "C" int attention_dh##DH##_bq##BQ##_bkv##BKV##_bf16(                            \
+      const attention::bf16_t* q, const attention::bf16_t* k, const attention::bf16_t* v, \
+      attention::bf16_t* out, int B, int Tq, int Tkv, int H, int Hk, int causal,         \
+      int q_offset, float scale, int lookahead, void* stream) {                          \
+    return attention::wg::launch<DH, BQ, BKV>(q, k, v, out, B, Tq, Tkv, H, Hk, causal,   \
+                                              q_offset, scale, lookahead, stream);       \
+  }                                                                                      \
+  extern "C" long long attention_dh##DH##_bq##BQ##_bkv##BKV##_bf16_smem(int lookahead) { \
+    return (long long)attention::wg::smem_bytes<DH, BKV>(lookahead);                     \
+  }

@@ -16,12 +16,14 @@ CUDA device and its plain version on the CPU.
 profile) the validator is the TPU kernel's VMEM footprint: its q, k, v
 and score blocks and the accumulators. On a CUDA device
 (``hopper=True``) it checks what the Hopper kernel holds in shared
-memory: its ring of ``lookahead + 1`` stages of 32 keys of K and V and,
-for fp32 inputs, the split slice, whatever the blocks
-(:func:`~repro_torch.kernels.attention.attention.smem_bytes`: 98–162 kB at
-Dh 128, 50–82 kB at 64, 14–22 kB at 16 in fp32; 17–51, 9–27 and 3–9 kB
-in bf16), at the head dims the library is instantiated for (16, 64,
-128); any other Dh has no valid point.
+memory (:func:`~repro_torch.kernels.attention.attention.smem_bytes`): in
+fp32 its ring of ``lookahead + 1`` stages of 32 keys of K and V and the
+split slice, whatever the blocks (98–162 kB at Dh 128, 50–82 kB at 64,
+14–22 kB at 16); in bf16 the wgmma kernel's 128-row q tile and its
+ring of ``lookahead + 1`` stages of 64- or 128-key K and V tiles
+(65–225 kB at Dh 128, 33–113 at 64, 9–29 at 16), at the head dims the
+library is instantiated for (16, 64, 128); any other Dh has no valid
+point.
 """
 
 from __future__ import annotations

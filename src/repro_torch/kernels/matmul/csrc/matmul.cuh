@@ -68,27 +68,65 @@
 // do not hide the chain from shared memory through the split to the
 // dependent mma.syncs (on an H100 80GB HBM3 at 700 W: 4.2 ms at the
 // up-projection at DEFAULT_POINT, cuBLAS fp32 3.6 ms).
-// bf16 operands (the kernel's element type T, bf16 bits as uint16_t):
-// the input class of `matmul_pallas` whose operands are bf16 and whose
-// output stays fp32 (`out_dtype=jnp.float32`). A bf16 x bf16 product is
-// exact in fp32, so there is no split: one mma.sync m16n8k16 bf16 product
-// (sm90::mma_bf16_m16n8k16) into the same fp32 accumulators, the same
-// tiles, passes, ring, partials, orders and ragged-edge zeros as above.
-// Its bound at the up-projection: 184.7 GFLOP at 989 TFLOP/s, 0.187 ms,
-// against 0.059 ms of bytes: operations. The slices are staged as bf16
-// (16-byte copies of 8 values; K or N not a multiple of 8, or an
-// unaligned operand, is staged by plain 2-byte loads and stores, which
-// the ring's barriers order as they order the copies). A rows are padded
-// to D + 8 values, so each A fragment register is one 32-bit load of
-// two k-adjacent values, conflict-free. B is n-contiguous, but the .col
-// B fragment wants k-adjacent pairs: each B register is two 16-bit
-// shared-memory reads, rows k and k + 1, packed (sm90::pack_u16x2), not
-// ldmatrix.trans; rows of 136 values keep the four k rows a warp reads
-// in different banks.
-// Left for later: wgmma (it takes TF32 only K-major from shared memory,
-// so B would need a transposing stage; bf16 B may be MN-major), TMA
-// copies with mbarriers and a producer warp, a persistent grid,
-// ldmatrix(.trans) for the bf16 fragments.
+// bf16 operands: the input class of `matmul_pallas` whose operands are
+// bf16 and whose output stays fp32 (`out_dtype=jnp.float32`). Its bound
+// at the up-projection: 184.7 GFLOP at 989 TFLOP/s, 0.187 ms, against
+// 0.059 ms of bytes: operations. A bf16 x bf16 product is exact in fp32.
+// Two kernels, picked by the Python wrapper before the launch:
+//
+// `wg::matmul_wgmma` (symbols `_bf16`), for operands TMA can describe (K
+// and N multiples of 8, both 16-byte aligned): Hopper's own machinery.
+//   * A persistent grid of at most as many blocks as are resident on the
+//     SMs walks the output tiles: tiles of 64 or 128 rows (block_m < 128
+//     or not) by 128 or 256 columns (block_n < 256 or not). `order` 0
+//     ("mn") walks bands of tile rows column by column, 1 ("nm") bands
+//     of tile columns row by row. A band is at least block_m (block_n)
+//     wide, and wide enough that the tiles resident at once span about as
+//     many bytes of A as of B (h bands with h * h * TM >= blocks * TN):
+//     with bands of one tile row the resident tiles re-read all of B from
+//     HBM for every few rows of A.
+//   * A block is a producer warpgroup and two consumer warpgroups (384
+//     threads; setmaxnreg gives the producer 40 registers, the consumers
+//     232). One producer thread issues TMA loads of 64-deep A and B
+//     slices into a ring of `lookahead + 2` stages (one more than the
+//     mma.sync kernel's: a stage stays held while the products reading it
+//     finish), each with a full and an empty mbarrier: A as one box of
+//     tile rows x 64 (k innermost), B as 64 x 64 boxes (n innermost),
+//     both with the 128-byte swizzle. TMA fills zeros past every edge: the
+//     Pallas kernel's `k_rem` and the ragged M and N edges need no masked
+//     copy.
+//   * Each consumer warpgroup owns 64 rows x 128 or 256 columns (at 64
+//     tile rows, both share the rows and split the columns) on wgmma
+//     m64nNk16 (sm90::Wgmma<N>::ss), A K-major and B MN-major (the
+//     descriptor's transpose bit: no transposing stage) from shared
+//     memory, fp32 accumulators in registers. A slice's four wgmmas run
+//     while the next slice's are issued (wgmma_wait<1>); a stage goes back
+//     to the producer once the products reading it are done.
+//   * scratch=1 accumulates over all of K and stores once; scratch=0
+//     stores after the first block_k chunk and read-modify-writes the
+//     output after every later one. The producer loads the next tile's
+//     slices while the consumers write a tile out.
+//   * Inert here: `unroll` (every product of a tile is one accumulation
+//     chain), and `block_k` at scratch=1.
+// What still holds it back: the epilogue (fp32 stores from registers)
+// leaves the tensor cores idle, since both consumer warpgroups finish a
+// tile together; a 128 x 256 tile grid leaves the last of 5.2 waves a
+// quarter full at the up-projection; 128 x 128 tiles (DEFAULT_POINT)
+// give each wgmma half the columns of a 128 x 256 tile's, for the same
+// A rows read from shared memory.
+//
+// `matmul_kernel<bf16_t, ...>` (symbols `_bf16_mma`), for any other
+// operands: one mma.sync m16n8k16 bf16 product (sm90::mma_bf16_m16n8k16)
+// into the same fp32 accumulators, the same tiles, passes, ring, partials,
+// orders and ragged-edge zeros as the fp32 kernel above. The slices are
+// staged as bf16 (16-byte copies of 8 values; K or N not a multiple of 8,
+// or an unaligned operand, is staged by plain 2-byte loads and stores,
+// which the ring's barriers order as they order the copies). A rows are
+// padded to D + 8 values, so each A fragment register is one 32-bit load
+// of two k-adjacent values, conflict-free. B is n-contiguous, but the
+// .col B fragment wants k-adjacent pairs: each B register is two 16-bit
+// shared-memory reads, rows k and k + 1, packed (sm90::pack_u16x2); rows
+// of 136 values keep the four k rows a warp reads in different banks.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -437,12 +475,238 @@ int launch(const T* a, const T* b, float* c, int M, int N, int K,
   }
 }
 
+// ------------------------------------------- the bf16 wgmma kernel (path "wgmma")
+namespace wg {
+
+constexpr int kThreads = 384;     // a producer warpgroup and two consumer warpgroups
+constexpr int kDepth = 64;        // k depth of a staged slice: one 128-byte swizzle row
+constexpr int kBarrierBytes = 64; // a full and an empty barrier for each of <= 4 stages
+
+// the block's output tile: 64 or 128 rows, 128 or 256 columns
+template <int BM>
+__host__ __device__ constexpr int tile_m() { return BM < 128 ? 64 : 128; }
+template <int BN>
+__host__ __device__ constexpr int tile_n() { return BN < 256 ? 128 : 256; }
+// columns of a consumer warpgroup's 64-row accumulator: the whole tile, or
+// half of it where the tile has only 64 rows
+template <int BM, int BN>
+__host__ __device__ constexpr int wg_n() { return BM < 128 ? tile_n<BN>() / 2 : tile_n<BN>(); }
+// one ring stage: an A slice (tile rows x 64) and a B slice (64 x tile columns)
+template <int BM, int BN>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return 2 * (size_t)(tile_m<BM>() + tile_n<BN>()) * kDepth;
+}
+// the dynamic shared memory a block asks for: the ring, its barriers, and
+// room to align the ring to 1024 bytes (the 128-byte swizzle's period)
+template <int BM, int BN>
+__host__ __device__ constexpr size_t smem_bytes(int lookahead) {
+  return 1024 + kBarrierBytes + (size_t)(lookahead + 2) * stage_bytes<BM, BN>();
+}
+
+// output tile (i, j) of the persistent walk's idx-th tile: "mn" walks bands
+// of gm tile rows, column by column inside a band; "nm" bands of gn tile
+// columns, row by row
+__device__ __forceinline__ void tile_coords(int idx, int order, int tm, int tn, int gm, int gn,
+                                            int& i, int& j) {
+  if (order == 0) {
+    const int band = idx / (gm * tn);
+    const int h = min(gm, tm - band * gm);
+    const int r = idx - band * gm * tn;
+    j = r / h;
+    i = band * gm + r % h;
+  } else {
+    const int band = idx / (gn * tm);
+    const int w = min(gn, tn - band * gn);
+    const int r = idx - band * gn * tm;
+    i = r / w;
+    j = band * gn + r % w;
+  }
+}
+
+template <int BM, int BN, int BK, int UNROLL>
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+             float* __restrict__ c, int M, int N, int K, int order, int scratch, int stages) {
+  constexpr int TM = tile_m<BM>(), TN = tile_n<BN>(), WN = wg_n<BM, BN>();
+  constexpr int kA = TM * kDepth;             // elements of a stage's A slice
+  constexpr int kStage = (TM + TN) * kDepth;  // elements of a stage
+  constexpr int kChunk = BK / kDepth;         // slices of a block_k chunk
+  static_assert(BK % kDepth == 0, "block_k is a whole number of slices");
+  extern __shared__ __align__(16) float smem[];
+  bf16_t* const ring = reinterpret_cast<bf16_t*>(
+      reinterpret_cast<char*>(smem) + ((1024 - (sm90::smem_addr(smem) & 1023)) & 1023));
+  uint64_t* const full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * kStage);
+  uint64_t* const empty = full + stages;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 2);  // one arrival from each consumer warpgroup
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int tm = (M + TM - 1) / TM, tn = (N + TN - 1) / TN, n_tiles = tm * tn;
+  // bands of at least block_m / TM tile rows ("mn") or block_n / TN tile
+  // columns ("nm"), and wide enough that the tiles the resident blocks
+  // hold at once span about as many bytes of A as of B: h bands of rows
+  // with h * h * TM >= gridDim.x * TN (columns likewise), so a wave
+  // streams neither operand from HBM again and again
+  int gm = 1, gn = 1;
+  while (gm * gm * TM < (int)gridDim.x * TN) ++gm;
+  while (gn * gn * TN < (int)gridDim.x * TM) ++gn;
+  gm = min(max(gm, BM / TM), tm);
+  gn = min(max(gn, BN / TN), tn);
+  const int S = (K + kDepth - 1) / kDepth;  // slices over all of K
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+
+  if (wg == 0) {
+    // the producer: one thread keeps the ring full, tile after tile
+    sm90::setmaxnreg_dec<40>();
+    if (t == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        int i, j;
+        tile_coords(tile, order, tm, tn, gm, gn, i, j);
+        for (int s = 0; s < S; ++s, ++it) {
+          const int st = it % stages;
+          sm90::mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
+          bf16_t* as = ring + (size_t)st * kStage;
+          sm90::mbar_arrive_expect_tx(&full[st], 2 * kStage);
+          sm90::tma_load_2d(as, &ta, &full[st], s * kDepth, i * TM);
+#pragma unroll
+          for (int nb = 0; nb < TN / 64; ++nb)
+            sm90::tma_load_2d(as + kA + nb * 64 * kDepth, &tb, &full[st], j * TN + nb * 64,
+                              s * kDepth);
+        }
+      }
+    }
+  } else {
+    // a consumer: 64 rows x WN columns of the tile on wgmma, fp32 accumulators
+    sm90::setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int row0 = BM < 128 ? 0 : 64 * cw, col0 = BM < 128 ? WN * cw : 0;
+    const int warp = t / 32, g = (t % 32) / 4, q = t % 4;
+    float acc[WN / 2];
+    int it = 0;  // slices consumed, over every tile: the ring's position
+    // one slice's products into acc (scale_d 0: the first overwrites it)
+    auto issue = [&](int st, int scale_d) {
+      const bf16_t* as = ring + (size_t)st * kStage + row0 * kDepth;
+      const bf16_t* bs = ring + (size_t)st * kStage + kA + col0 * kDepth;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDepth / 16; ++kk)
+        sm90::Wgmma<WN>::template ss<1>(
+            acc, sm90::smem_desc(as + kk * 16, 0, 1024, 128),
+            sm90::smem_desc(bs + kk * 16 * 64, 64 * kDepth * 2, 1024, 128),
+            kk == 0 ? scale_d : 1);
+      sm90::wgmma_commit();
+    };
+    // a chunk is all of K (scratch 1) or block_k deep (scratch 0)
+    const int chunk = scratch ? S : kChunk;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int i, j;
+      tile_coords(tile, order, tm, tn, gm, gn, i, j);
+      for (int c0 = 0; c0 < S; c0 += chunk) {
+        const int c1 = min(S, c0 + chunk);
+        int st = it % stages;
+        sm90::mbar_wait(&full[st], (it / stages) & 1);
+#pragma unroll
+        for (int r = 0; r < WN / 2; ++r) sm90::fence_operand(acc[r]);
+        issue(st, 0);
+        ++it;
+        for (int s = c0 + 1; s < c1; ++s, ++it) {
+          const int prev = st;
+          st = it % stages;
+          sm90::mbar_wait(&full[st], (it / stages) & 1);
+          issue(st, 1);
+          // the previous slice's products are done: its stage goes back
+          // to the producer while this slice's run on
+          sm90::wgmma_wait<1>();
+          if (t == 0) sm90::mbar_arrive(&empty[prev]);
+        }
+        sm90::wgmma_wait<0>();
+        if (t == 0) sm90::mbar_arrive(&empty[st]);
+#pragma unroll
+        for (int r = 0; r < WN / 2; ++r) sm90::fence_operand(acc[r]);
+        // the tile's (scratch 1) or the chunk's (scratch 0, read-modify-
+        // write after the first chunk) outputs, two adjacent columns a
+        // store: N is a multiple of 8 on this path
+        const bool add = c0 > 0;
+#pragma unroll
+        for (int jj = 0; jj < WN / 8; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gr = i * TM + row0 + 16 * warp + g + 8 * h;
+            const int gc = j * TN + col0 + 8 * jj + 2 * q;
+            if (gr < M && gc < N) {
+              float2* o = reinterpret_cast<float2*>(c + (size_t)gr * N + gc);
+              float2 v = make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+              if (add) {
+                const float2 old = *o;
+                v.x += old.x;
+                v.y += old.y;
+              }
+              *o = v;
+            }
+          }
+      }
+    }
+  }
+}
+
+// Host launcher: tensor maps of A (K-major boxes of 64 x tile rows) and B
+// (64 x 64 boxes, n innermost), both 128-byte swizzled, and a persistent
+// grid of at most the blocks resident on all SMs. The caller guarantees
+// what TMA needs: K and N multiples of 8, a and b 16-byte aligned.
+template <int BM, int BN, int BK, int UNROLL>
+int launch(const bf16_t* a, const bf16_t* b, float* c, int M, int N, int K, int order,
+           int scratch, int lookahead, void* stream) {
+  if (lookahead < 0 || lookahead > 2) return (int)cudaErrorInvalidValue;
+  constexpr int TM = tile_m<BM>(), TN = tile_n<BN>();
+  CUtensorMap ta, tb;
+  const uint64_t a_dims[2] = {(uint64_t)K, (uint64_t)M}, a_strides[1] = {(uint64_t)K * 2};
+  const uint32_t a_box[2] = {kDepth, TM};
+  int rc = sm90::make_tile_map(&ta, a, 2, a_dims, a_strides, a_box, 128);
+  if (rc != 0) return rc;
+  const uint64_t b_dims[2] = {(uint64_t)N, (uint64_t)K}, b_strides[1] = {(uint64_t)N * 2};
+  const uint32_t b_box[2] = {64, kDepth};
+  rc = sm90::make_tile_map(&tb, b, 2, b_dims, b_strides, b_box, 128);
+  if (rc != 0) return rc;
+  const auto kernel = matmul_wgmma<BM, BN, BK, UNROLL>;
+  const size_t smem = smem_bytes<BM, BN>(lookahead);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)((M + TM - 1) / TM) * ((N + TN - 1) / TN);
+  if (tiles <= 0) return (int)cudaSuccess;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const long long fill = (long long)sms * per_sm;
+  const long long blocks = tiles < fill ? tiles : fill;
+  kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(ta, tb, c, M, N, K, order,
+                                                                   scratch, lookahead + 2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace matmul
 
-// One exported C symbol per instantiation and operand type:
-//   int matmul_bm<BM>_bn<BN>_bk<BK>_u<UNROLL>[_bf16](a, b, c, M, N, K,
-//                                     order, scratch, lookahead, stream)
-// fp32 operands without a suffix, bf16 operands with `_bf16`; c is fp32.
+// Exported C symbols per instantiation and operand type:
+//   int matmul_bm<BM>_bn<BN>_bk<BK>_u<UNROLL>[_bf16|_bf16_mma](a, b, c, M, N,
+//                                     K, order, scratch, lookahead, stream)
+// fp32 operands without a suffix; bf16 operands with `_bf16` (the wgmma
+// kernel) or `_bf16_mma` (the mma.sync kernel, for operands TMA cannot
+// describe); c is fp32. `..._bf16_smem(lookahead)` is the wgmma kernel's
+// dynamic shared memory, as its launcher asks for it.
 #define MATMUL_INSTANTIATE(BM, BN, BK, U)                                             \
   extern "C" int matmul_bm##BM##_bn##BN##_bk##BK##_u##U(                              \
       const float* a, const float* b, float* c, int M, int N, int K, int order,       \
@@ -452,6 +716,17 @@ int launch(const T* a, const T* b, float* c, int M, int N, int K,
   }
 #define MATMUL_INSTANTIATE_BF16(BM, BN, BK, U)                                        \
   extern "C" int matmul_bm##BM##_bn##BN##_bk##BK##_u##U##_bf16(                       \
+      const matmul::bf16_t* a, const matmul::bf16_t* b, float* c, int M, int N,       \
+      int K, int order, int scratch, int lookahead, void* stream) {                   \
+    return matmul::wg::launch<BM, BN, BK, U>(a, b, c, M, N, K, order, scratch,        \
+                                             lookahead, stream);                      \
+  }                                                                                   \
+  extern "C" long long matmul_bm##BM##_bn##BN##_bk##BK##_u##U##_bf16_smem(            \
+      int lookahead) {                                                                \
+    return (long long)matmul::wg::smem_bytes<BM, BN>(lookahead);                      \
+  }
+#define MATMUL_INSTANTIATE_BF16_MMA(BM, BN, BK, U)                                    \
+  extern "C" int matmul_bm##BM##_bn##BN##_bk##BK##_u##U##_bf16_mma(                   \
       const matmul::bf16_t* a, const matmul::bf16_t* b, float* c, int M, int N,       \
       int K, int order, int scratch, int lookahead, void* stream) {                   \
     return matmul::launch<matmul::bf16_t, BM, BN, BK, U>(a, b, c, M, N, K, order,     \

@@ -8,12 +8,13 @@ CUDA C++) on a CUDA device and its plain version on the CPU.
 profile) the validator is the TPU kernel's VMEM footprint: the A, B and
 output blocks (and the scratch accumulator). On a CUDA device
 (``hopper=True``) it checks what the Hopper kernel holds in shared
-memory: its ring of ``lookahead + 1`` stages, each a slice of A (the
-pass tile's rows x 64 or 32) and a 64 or 32 x 128 slice of B, in the
-operands' type (:func:`~repro_torch.kernels.matmul.matmul.smem_bytes`,
-26–204 kB in fp32, 14–105 kB in bf16), whatever the tile, since the tile
-is walked in passes and slices; and ``block_k`` must be one of the
-instantiated chunk depths.
+memory: its ring of ``lookahead + 1`` stages, in fp32 each a slice of
+A (the pass tile's rows x 64 or 32) and a 64 or 32 x 128 slice of B
+(26–204 kB, whatever the tile, since the tile is walked in passes and
+slices), in bf16 the wgmma kernel's 64-deep slices of its 64- or
+128-row, 128- or 256-column tile (49–193 kB;
+:func:`~repro_torch.kernels.matmul.matmul.smem_bytes`); and
+``block_k`` must be one of the instantiated chunk depths.
 """
 
 from __future__ import annotations

@@ -262,27 +262,36 @@ def test_gate_checks_bf16_variants():
 
 def test_hopper_rule_counts_the_bf16_footprint():
     """On the card the capacity rule counts the bf16 kernels' own shared
-    memory: a capacity that holds every bf16 ring refuses fp32 points."""
-    mm16 = tmatmul.make_space(2048, 11008, 4096, dtype_bytes=2, vmem_kb=106, hopper=True)
-    mm32 = tmatmul.make_space(2048, 11008, 4096, dtype_bytes=4, vmem_kb=106, hopper=True)
+    memory (the wgmma kernels', the main path's). matmul: a capacity that
+    holds every bf16 ring (193 kB at most) refuses fp32 points. attention:
+    the wgmma kernel's q tile and 128-key stages outgrow fp32's rings, so
+    a capacity that holds every fp32 ring (162 kB at most) refuses
+    exactly the bf16 points with three stages of 128-key tiles."""
+    mm16 = tmatmul.make_space(2048, 11008, 4096, dtype_bytes=2, vmem_kb=194, hopper=True)
+    mm32 = tmatmul.make_space(2048, 11008, 4096, dtype_bytes=4, vmem_kb=194, hopper=True)
     assert len(list(mm16.iter_valid())) == len(list(mm16.iter_all())) - sum(
         1 for p in mm16.iter_all() if p["block_k"] % p["unroll"]
         or p["block_m"] > 2048 + 8)
     assert len(list(mm32.iter_valid())) < len(list(mm16.iter_valid()))
-    at16 = tattn.make_space(512, 512, 128, vmem_kb=52, hopper=True, dtype_bytes=2)
-    at32 = tattn.make_space(512, 512, 128, vmem_kb=52, hopper=True)
-    assert len(list(at16.iter_valid())) == len(list(at16.iter_all()))
-    assert not list(at32.iter_valid())
+    at16 = tattn.make_space(512, 512, 128, vmem_kb=163, hopper=True, dtype_bytes=2)
+    at32 = tattn.make_space(512, 512, 128, vmem_kb=163, hopper=True)
+    assert len(list(at32.iter_valid())) == len(list(at32.iter_all()))
+    refused = [p for p in at16.iter_all() if not at16.is_valid(p)]
+    assert refused and all(p["lookahead"] == 2 and p["block_kv"] >= 128 for p in refused)
+    assert len(refused) == sum(1 for p in at16.iter_all()
+                               if p["lookahead"] == 2 and p["block_kv"] >= 128)
+    whole = tattn.make_space(512, 512, 128, vmem_kb=226, hopper=True, dtype_bytes=2)
+    assert len(list(whole.iter_valid())) == len(list(whole.iter_all()))
     for p in at16.iter_valid():
         assert tattn_kernel.symbol(p, 512, 512, 128, BF16) in tattn_kernel.instantiations()
     # the catalog reads the element size from the spec's dtype
     cat = get_catalog()
     spec = {"B": 4, "Tq": 512, "Tkv": 512, "H": 32, "Hk": 32, "Dh": 128,
-            "causal": True, "device": "cuda", "vmem_kb": 52}
+            "causal": True, "device": "cuda", "vmem_kb": 163}
     assert len(list(cat.get("attention").make_space({**spec, "dtype": "bfloat16"})
                     .iter_valid())) == len(list(at16.iter_valid()))
-    assert not list(cat.get("attention").make_space({**spec, "dtype": "float32"})
-                    .iter_valid())
+    assert len(list(cat.get("attention").make_space({**spec, "dtype": "float32"})
+                    .iter_valid())) == len(list(at32.iter_valid()))
 
 
 def _mods(pkg):

@@ -1,7 +1,9 @@
-"""The bf16 input class of the matmul and flash-attention kernels, run on
-the CPU under ``tests/cuda_emulator.h``.
+"""The bf16 input class of the matmul and flash-attention kernels on their
+``mma`` path (the ``mma.sync`` kernels that serve operands TMA cannot
+describe), run on the CPU under ``tests/cuda_emulator.h``; the ``wgmma``
+path has ``test_torch_wgmma_emulation.py``.
 
-The bf16 paths of ``csrc/matmul.cuh`` (bf16 A and B, fp32 C) and
+The ``mma`` paths of ``csrc/matmul.cuh`` (bf16 A and B, fp32 C) and
 ``csrc/attention.cuh`` (``flash_kernel_bf16``: bf16 q, k, v and out) are
 compiled with the host's C++ compiler against the emulator, whose
 ``mma_bf16_m16n8k16`` gathers the warp's fragments in PTX's m16n8k16
@@ -57,10 +59,14 @@ def emulated(tmp_path_factory):
     out = tmp_path_factory.mktemp("bf16_emulation")
     (out / "cuda_emulator.h").write_text(
         Path(__file__).with_name("cuda_emulator.h").read_text())
+    # each family's mma instantiations, and (for the footprint test) the
+    # wgmma ones of the same points
     wanted = {
-        "matmul": [tmatmul.instantiations()[tmatmul.symbol(p, BF16)]
-                   for p in MATMUL_POINTS],
-        "attention": [tattn.instantiations()[tattn.symbol(ATTENTION_POINT, 64, 64, 16, BF16)]],
+        "matmul": [tmatmul.instantiations()[tmatmul.symbol(p, BF16, path)]
+                   for p in MATMUL_POINTS for path in ("mma", "wgmma")],
+        "attention": [tattn.instantiations()[tattn.symbol(ATTENTION_POINT, 64, 64, 16, BF16,
+                                                          path)]
+                      for path in ("mma", "wgmma")],
     }
     procs = {}
     for family, lines in wanted.items():
@@ -109,7 +115,7 @@ def test_emulated_bf16_matmul(emulated, M, N, K, shift, which):
     point = dict(MATMUL_POINTS[which], lookahead=2 * which)
     a, b = _bf16((M, K), seed=1 + which, shift=shift), _bf16((K, N), seed=3, shift=shift)
     c = torch.full((M, N), float("nan"), dtype=torch.float32)
-    _call(emulated["matmul"], tmatmul.symbol(point, BF16), tmatmul._ARGTYPES,
+    _call(emulated["matmul"], tmatmul.symbol(point, BF16, "mma"), tmatmul._ARGTYPES,
           a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
           tmatmul._ORDERS[point["order"]], point["scratch"], point["lookahead"], None)
     torch.testing.assert_close(c, tmatmul.matmul_plain(a, b, point), **MATMUL_TOL)
@@ -119,7 +125,7 @@ def _attention(lib, q, k, v, point, *, causal=1, q_offset=0, lookahead=1):
     B, Tq, H, Dh = q.shape
     _, Tkv, Hk, _ = k.shape
     out = torch.full_like(q, float("nan"))
-    _call(lib, tattn.symbol(point, Tq, Tkv, Dh, BF16), tattn._ARGTYPES,
+    _call(lib, tattn.symbol(point, Tq, Tkv, Dh, BF16, "mma"), tattn._ARGTYPES,
           q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tkv, H, Hk,
           causal, q_offset, Dh ** -0.5, lookahead, None)
     return out
@@ -156,15 +162,33 @@ def test_emulated_bf16_attention_unaligned_and_non_causal(emulated, causal, shif
 
 
 def test_emulated_bf16_footprints_match_the_python_count(emulated):
-    """The capacity rule's counts are the bf16 kernels' own footprints:
-    attention's exported ``_smem`` at every ring depth, and matmul's
-    stage formula at the emulated points."""
-    fn = getattr(emulated["attention"],
-                 tattn.symbol(ATTENTION_POINT, 64, 64, 16, BF16) + "_smem")
-    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    """The capacity rule's counts are the bf16 kernels' own footprints,
+    each kernel's exported ``_smem`` at every ring depth: the wgmma
+    kernels' (``smem_bytes`` at bf16, the main path's) and the mma
+    kernels' (``path="mma"``)."""
+    def smem(lib, sym):
+        fn = getattr(lib, sym + "_smem")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+        return fn
+
+    wgmma = smem(emulated["attention"], tattn.symbol(ATTENTION_POINT, 64, 64, 16, BF16))
+    mma = smem(emulated["attention"], tattn.symbol(ATTENTION_POINT, 64, 64, 16, BF16, "mma"))
     for la in (0, 1, 2):
-        assert fn(la) == tattn.smem_bytes({"lookahead": la}, 16, dtype_bytes=2)
-        assert fn(la) == (la + 1) * 2 * 2 * 32 * (16 + 8)
-    # 64-row passes, 64-deep slices: A 64 x 72 and B 64 x 136 bf16 values
-    assert tmatmul.smem_bytes(dict(MATMUL_POINTS[0], lookahead=0), 2) == \
+        point = dict(ATTENTION_POINT, lookahead=la)
+        assert wgmma(la) == tattn.smem_bytes(point, 16, dtype_bytes=2)
+        # a 1024-byte alignment pad, 128 bytes of barriers, the 128-row q
+        # tile and la + 1 stages of 128-key K and V tiles
+        assert wgmma(la) == 1024 + 128 + 2 * 128 * 16 + (la + 1) * 2 * 2 * 128 * 16
+        assert mma(la) == tattn.smem_bytes(point, 16, dtype_bytes=2, path="mma")
+        assert mma(la) == (la + 1) * 2 * 2 * 32 * (16 + 8)
+    for p in MATMUL_POINTS:
+        wgmma = smem(emulated["matmul"], tmatmul.symbol(p, BF16))
+        tm, tn = (64 if p["block_m"] < 128 else 128), (128 if p["block_n"] < 256 else 256)
+        for la in (0, 1, 2):
+            point = dict(p, lookahead=la)
+            assert wgmma(la) == tmatmul.smem_bytes(point, 2)
+            assert wgmma(la) == 1024 + 64 + (la + 2) * 2 * (tm + tn) * 64
+    # the mma kernel's 64-row passes, 64-deep slices: A 64 x 72 and B 64 x
+    # 136 bf16 values
+    assert tmatmul.smem_bytes(dict(MATMUL_POINTS[0], lookahead=0), 2, path="mma") == \
         2 * (64 * 72 + 64 * 136)

@@ -230,19 +230,22 @@ def test_lm_kernel_builds_need_a_cuda_device(family):
 def test_lm_instantiation_units():
     """One instantiation line per symbol, dealt over the units of one
     library with its error-string unit: matmul and attention once per
-    input type (fp32 without a suffix, bf16 with ``_bf16``), rmsnorm's
-    macro taking the type as an argument."""
+    input type and path (fp32 without a suffix, bf16's wgmma kernels with
+    ``_bf16``, its mma kernels with ``_bf16_mma``), rmsnorm's macro
+    taking the type as an argument."""
+    paths = (("", ""), ("_BF16", "_bf16"), ("_BF16_MMA", "_bf16_mma"))
     for mod, macro, count, types in (
-            (tmatmul_kernel, "MATMUL_INSTANTIATE", 108, ("", "_BF16")),
-            (tattn_kernel, "ATTENTION_INSTANTIATE", 45, ("", "_BF16")),
-            (trmsnorm_kernel, "RMSNORM_INSTANTIATE", 8, ("",))):
+            (tmatmul_kernel, "MATMUL_INSTANTIATE", 108, paths),
+            (tattn_kernel, "ATTENTION_INSTANTIATE", 45, paths),
+            (trmsnorm_kernel, "RMSNORM_INSTANTIATE", 8, (("", ""),))):
         inst = mod.instantiations()
         assert len(inst) == count * len(types) == len(set(inst.values()))
-        for sfx in types:
+        for sfx, sym_sfx in types:
             mine = [sym for sym, line in inst.items() if line.startswith(macro + sfx + "(")]
             assert len(mine) == count
             if len(types) > 1:
-                assert all(sym.endswith("_bf16") == bool(sfx) for sym in mine)
+                assert all(sym.endswith(sym_sfx) and not sym.endswith(sym_sfx + "_mma")
+                           for sym in mine)
 
 
 @pytest.mark.parametrize("family", ["matmul", "rmsnorm", "attention", "euclid"])
