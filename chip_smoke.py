@@ -1757,9 +1757,9 @@ def profile_serve(dev, cfg=None, decode_steps: int = 8, labels=()) -> dict:
     ``decode_steps`` decode steps of ``cfg`` (deepseek-7b by default; B
     PROFILE_BATCH, T PROFILE_SEQ; the step programs without a tuning session), each timed on
     the host around a device sync, then run again under
-    ``torch.profiler``: the device busy share is the traced kernels'
-    summed time over the untraced host interval (one stream, so kernels
-    do not overlap). Beside the kernels by device time and their count,
+    ``torch.profiler`` for the traced kernels' summed device time. (The
+    benchmark's ``device_idle_pct`` reads the device's idle share from
+    one traced interval.) Beside the kernels by device time and their count,
     the ATen products (``aten::bmm``, ``aten::mm``) by input shape, which
     tell an MoE's dispatch and combine einsums from its expert products,
     and the device time inside each ``record_function`` range named in
@@ -1831,7 +1831,6 @@ def profile_serve(dev, cfg=None, decode_steps: int = 8, labels=()) -> dict:
         top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
         top_products = sorted(products.items(), key=lambda kv: -kv[1])[:8]
         out[phase] = {"wall_s": wall, "device_busy_s": busy_s,
-                      "device_busy_share": busy_s / wall,
                       "rmsnorm_ms": sum(v for k, v in dev_us.items() if "rmsnorm" in k) * 1e-3,
                       "flash_ms": sum(v for k, v in dev_us.items()
                                       if "flash_kernel" in k) * 1e-3,
@@ -1842,8 +1841,8 @@ def profile_serve(dev, cfg=None, decode_steps: int = 8, labels=()) -> dict:
     for phase in ("prefill", "decode"):
         o = out[phase]
         print(f"profile {cfg.name} ({cfg.n_layers} layers) {phase}: {o['wall_s']:.4f} s "
-              f"on the host clock, device busy {o['device_busy_s']:.4f} s "
-              f"({100 * o['device_busy_share']:.1f}%), rmsnorm {o['rmsnorm_ms']:.3f} ms, "
+              f"on the host clock, device busy {o['device_busy_s']:.4f} s, "
+              f"rmsnorm {o['rmsnorm_ms']:.3f} ms, "
               f"flash attention {o['flash_ms']:.3f} ms, {o['kernel_launches']} kernels; "
               f"ranges (ms) { {k: round(v, 3) for k, v in o['ranges_ms'].items()} }; top "
               "kernels (ms): "

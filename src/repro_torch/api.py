@@ -63,6 +63,7 @@ from repro_torch.core.decision import LatencyHeadroomGate, RegenerationPolicy
 from repro_torch.core.evaluator import Evaluator
 from repro_torch.core.gate import GATE_MODES
 from repro_torch.core.tuning_space import TuningSpace
+from repro_torch.runtime import spans
 from repro_torch.runtime.coordinator import ManagedTuner, TuningCoordinator
 from repro_torch.runtime.kernel_plane import (
     KernelTuningPlane,
@@ -795,8 +796,9 @@ class TuningSession:
     def register(self, name: str, compilette: Compilette, evaluator: Any,
                  **kwargs: Any) -> ManagedTuner:
         """Register a pre-built compilette (program-level tuners)."""
-        return self.coordinator.register(name, compilette, evaluator,
-                                         **kwargs)
+        with spans.span("tune.register", kernel=name):
+            return self.coordinator.register(name, compilette, evaluator,
+                                             **kwargs)
 
     def observe_busy(self, seconds: float) -> None:
         self.coordinator.observe_busy(seconds)
@@ -881,25 +883,26 @@ class TuningSession:
         """
         from repro_torch.models.model import model_kernel_specs
 
-        cfg = self.config
-        plane = KernelTuningPlane.shared(
-            self.coordinator,
-            strategies=(dict(strategies) if strategies is not None
-                        else cfg.strategies),
-            # program points own the chunk knobs in "both" mode: the two
-            # levels must never fight over one knob
-            adopt_points=cfg.kernel_tuning != "both",
-            **self._plane_kwargs)
-        lifecycle = self.coordinator.lifecycle
-        seq_b = lifecycle.bucket_length(int(seq))
-        max_b = lifecycle.bucket_length(int(max_len)) if max_len else None
-        for name, spec in model_kernel_specs(
-                model_cfg, batch=int(batch), seq=seq_b, max_len=max_b):
-            if device is not None:
-                spec = {**spec, "device": str(device)}
-            plane.register_spec(name, spec, require=False)
-        self._plane = plane
-        return plane
+        with spans.span("tune.register"):
+            cfg = self.config
+            plane = KernelTuningPlane.shared(
+                self.coordinator,
+                strategies=(dict(strategies) if strategies is not None
+                            else cfg.strategies),
+                # program points own the chunk knobs in "both" mode: the two
+                # levels must never fight over one knob
+                adopt_points=cfg.kernel_tuning != "both",
+                **self._plane_kwargs)
+            lifecycle = self.coordinator.lifecycle
+            seq_b = lifecycle.bucket_length(int(seq))
+            max_b = lifecycle.bucket_length(int(max_len)) if max_len else None
+            for name, spec in model_kernel_specs(
+                    model_cfg, batch=int(batch), seq=seq_b, max_len=max_b):
+                if device is not None:
+                    spec = {**spec, "device": str(device)}
+                plane.register_spec(name, spec, require=False)
+            self._plane = plane
+            return plane
 
     # ----------------------------------------------------------- scope/close
     @contextlib.contextmanager

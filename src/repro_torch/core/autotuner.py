@@ -51,6 +51,7 @@ from repro_torch.core.evaluator import Measurement
 from repro_torch.core.explorer import SearchStrategy, make_strategy, strategy_accepts
 from repro_torch.core.gate import GATE_MODES, VariantGate
 from repro_torch.core.tuning_space import Point
+from repro_torch.runtime import spans
 
 # An external arbiter for regeneration budget (the coordinator's shared
 # budget): gate(accounts, now_s, next_cost_estimate_s) -> allowed.
@@ -547,8 +548,6 @@ class OnlineAutotuner:
         overlapped (or cached) and ``gen_charge_s`` is added explicitly so
         the budget still pays for it.
         """
-        t_eval = self._clock()
-
         def _charge(spent: float, eval_s: float) -> None:
             self.accounts.tuning_spent_s += spent
             self.accounts.gen_spent_s += gen_charge_s
@@ -556,19 +555,24 @@ class OnlineAutotuner:
             if stalled:
                 self.accounts.gen_stall_s += gen_charge_s
 
-        try:
-            measurement: Measurement = self.evaluator.evaluate(kern.fn)
-        except Exception as e:
+        # the span holds the interval eval_s times
+        with spans.span("tune.evaluate", kernel=self.compilette.name):
+            t_eval = self._clock()
+            try:
+                measurement: Measurement = self.evaluator.evaluate(kern.fn)
+                raised = None
+            except Exception as e:
+                raised = e
             eval_s = self._clock() - t_eval
+        if raised is not None:
             start = wall_t0 if wall_t0 is not None else t_eval
             spent = self._clock() - start
             if wall_t0 is None:
                 spent += gen_charge_s
             _charge(spent, eval_s)
             self.explorer.report(point, float("inf"))
-            self._quarantine(point, f"evaluation raised: {e!r}")
+            self._quarantine(point, f"evaluation raised: {raised!r}")
             return False
-        eval_s = self._clock() - t_eval
         if wall_t0 is not None:
             spent = self._clock() - wall_t0
         else:

@@ -36,6 +36,7 @@ from repro_torch.distributed import sharding as shlib
 from repro_torch.distributed.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamDef
+from repro_torch.runtime import spans
 
 
 def moe_defs(cfg: ModelConfig) -> dict:
@@ -92,25 +93,28 @@ def _experts(xg, gate_w, gate_idx, w_gate, w_up, w_down, cfg: ModelConfig,
     E, k = cfg.n_experts, cfg.top_k
     out = torch.zeros_like(xg)
     for j in range(k):                    # k independent top-1 dispatches
-        onehot_e = F.one_hot(gate_idx[..., j], E).to(torch.float32)    # (G, S, E)
-        pos = (torch.cumsum(onehot_e, dim=1) * onehot_e).sum(dim=-1) - 1.0  # (G, S)
-        keep = (pos < C).to(torch.float32)
-        # a dropped token's slot (pos >= C) is masked by keep; the
-        # reference's one_hot gives it a zero row, torch's refuses it
-        pos_oh = F.one_hot(pos.to(torch.int64).clamp(max=C - 1), C).to(torch.float32)
-        dispatch = (onehot_e[..., None] * pos_oh[..., None, :]
-                    * keep[..., None, None]).to(xg.dtype)               # (G,S,E,C)
-        if experts is not None:
-            dispatch = dispatch[:, :, experts[0]:experts[1]]
-        xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)               # (G,E,C,d)
-        xe = shard(xe, "groups", "expert", None, None)
-        g = torch.einsum("gecd,edf->gecf", xe, w_gate)
-        u = torch.einsum("gecd,edf->gecf", xe, w_up)
-        h = F.silu(g) * u
-        ye = torch.einsum("gecf,efd->gecd", h, w_down)
-        ye = shard(ye, "groups", "expert", None, None)
-        combine = dispatch * gate_w[..., j].to(xg.dtype)[..., None, None]
-        out = out + torch.einsum("gsec,gecd->gsd", combine, ye)
+        with spans.layer("moe.dispatch"):
+            onehot_e = F.one_hot(gate_idx[..., j], E).to(torch.float32)    # (G, S, E)
+            pos = (torch.cumsum(onehot_e, dim=1) * onehot_e).sum(dim=-1) - 1.0  # (G, S)
+            keep = (pos < C).to(torch.float32)
+            # a dropped token's slot (pos >= C) is masked by keep; the
+            # reference's one_hot gives it a zero row, torch's refuses it
+            pos_oh = F.one_hot(pos.to(torch.int64).clamp(max=C - 1), C).to(torch.float32)
+            dispatch = (onehot_e[..., None] * pos_oh[..., None, :]
+                        * keep[..., None, None]).to(xg.dtype)               # (G,S,E,C)
+            if experts is not None:
+                dispatch = dispatch[:, :, experts[0]:experts[1]]
+            xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)               # (G,E,C,d)
+            xe = shard(xe, "groups", "expert", None, None)
+        with spans.layer("moe.experts"):
+            g = torch.einsum("gecd,edf->gecf", xe, w_gate)
+            u = torch.einsum("gecd,edf->gecf", xe, w_up)
+            h = F.silu(g) * u
+            ye = torch.einsum("gecf,efd->gecd", h, w_down)
+            ye = shard(ye, "groups", "expert", None, None)
+        with spans.layer("moe.combine"):
+            combine = dispatch * gate_w[..., j].to(xg.dtype)[..., None, None]
+            out = out + torch.einsum("gsec,gecd->gsd", combine, ye)
     return out
 
 
@@ -135,13 +139,14 @@ def _moe_sharded(xg, p: dict, cfg: ModelConfig, C: int):
         return (probs.sum(dim=(0, 1)), gate_w, gate_idx,
                 _expert_counts(gate_idx, E).sum(dim=(0, 1)))
 
-    p_sum, gate_w, gate_idx, c_sum = shlib.on_local(
-        routing, xg, router,
-        out_like=(like_sum, like_k, shlib.template(xg, like_k.shape, torch.int64),
-                  like_sum),
-        grad_placements=(None, shlib.partial_over(xg)))
-    n_tok = xg.shape[0] * xg.shape[1]
-    aux = E * torch.sum((shlib.settle(p_sum) / n_tok) * (shlib.settle(c_sum) / n_tok / k))
+    with spans.layer("moe.route"):
+        p_sum, gate_w, gate_idx, c_sum = shlib.on_local(
+            routing, xg, router,
+            out_like=(like_sum, like_k, shlib.template(xg, like_k.shape, torch.int64),
+                      like_sum),
+            grad_placements=(None, shlib.partial_over(xg)))
+        n_tok = xg.shape[0] * xg.shape[1]
+        aux = E * torch.sum((shlib.settle(p_sum) / n_tok) * (shlib.settle(c_sum) / n_tok / k))
 
     m = names.index("model")
     # experts over the model axis, whole on the others (the FSDP gather)
@@ -173,7 +178,14 @@ def _shards(x, dim: int) -> int:
 
 
 def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, d) -> (out, aux_loss)."""
+    """x: (B, T, d) -> (out, aux_loss): one ``moe`` span of the layer tier
+    (:mod:`repro_torch.runtime.spans`), with ``moe.route`` and, per top-k
+    slice, ``moe.dispatch``, ``moe.experts`` and ``moe.combine`` inside."""
+    with spans.layer("moe"):
+        return _moe_ffn(x, p, cfg)
+
+
+def _moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     B, T, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     N = B * T
@@ -195,8 +207,9 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, t
             # whole on every rank before the reshapes
             out = shlib.replicated(out)
     else:
-        probs, gate_w, gate_idx = route(xg, p["router"], k)
-        aux = _aux_loss(probs, gate_idx, E, k)
+        with spans.layer("moe.route"):
+            probs, gate_w, gate_idx = route(xg, p["router"], k)
+            aux = _aux_loss(probs, gate_idx, E, k)
         w_gate, w_up, w_down = (p[n].to(xg.dtype) for n in ("w_gate", "w_up", "w_down"))
         out = _experts(xg, gate_w, gate_idx, w_gate, w_up, w_down, cfg, C)
 

@@ -77,6 +77,7 @@ from repro_torch.core.transfer import (
     device_traits,
     transfer_seeds,
 )
+from repro_torch.runtime import spans
 from repro_torch.runtime.lifecycle import (
     TunerLifecycle,
     TunerState,
@@ -828,7 +829,8 @@ class TuningCoordinator:
             return False
         if self._app_calls % self.pump_every:
             return False
-        return self.pump()
+        with spans.span("tune.pump"):
+            return self.pump()
 
     @property
     def finished(self) -> bool:

@@ -55,6 +55,7 @@ from typing import Any, Callable, Mapping
 
 from repro_torch.core.evaluator import Evaluator
 from repro_torch.kernels.catalog import KernelCatalog, KernelCompilette, get_catalog
+from repro_torch.runtime import spans
 from repro_torch.runtime.coordinator import ManagedTuner, TuningCoordinator
 from repro_torch.runtime.lifecycle import TunerState
 
@@ -267,7 +268,9 @@ class KernelTuningPlane:
         reference measurement (and all later evaluations, until the
         lifecycle releases the closure) runs on real traffic. Returns
         ``None`` when the spec is untunable (every point a hole) — the
-        calling layer falls back to its plain implementation.
+        calling layer falls back to its plain implementation. A first
+        sight of a shape (its registration and reference measurement) is
+        one ``tune.register`` span.
         """
         fast_key = (
             name,
@@ -290,7 +293,8 @@ class KernelTuningPlane:
         bucketed = self.coordinator.lifecycle.bucket_specialization(spec)
         key = (name, _canon(bucketed))
         self._live_args[key] = args
-        handle = self.register_spec(name, spec, require=False)
+        with spans.span("tune.register", kernel=name):
+            handle = self.register_spec(name, spec, require=False)
         if handle is None:
             self._live_args.pop(key, None)
             return None

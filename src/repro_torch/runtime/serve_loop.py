@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 from typing import Any
 
 import torch
@@ -74,6 +73,7 @@ from repro_torch.core import (
 from repro_torch.core.evaluator import block_until_ready
 from repro_torch.models.model import build_model
 from repro_torch.models.params import init_tree
+from repro_torch.runtime import spans
 
 __all__ = [
     "KERNEL_TUNING_MODES",
@@ -122,6 +122,12 @@ def widen_cache(model, cache, batch: int, max_len: int) -> tuple:
             full[tuple(slice(0, g) for g in got.shape)] = got
             widened.append(full)
     return tuple(widened)
+
+
+def _sync(x) -> None:
+    """``block_until_ready(x)`` as one ``serve.sync`` span."""
+    with spans.span("serve.sync"):
+        block_until_ready(x)
 
 
 def _prefill_compilette(model_cfg: ModelConfig, seq: int) -> Compilette:
@@ -182,8 +188,19 @@ def generate(
     when the request finishes. Everything runs on the device of
     ``batch["tokens"]``; without ``batch["params"]``, params are drawn
     there from ``serve.seed``.
+
+    The call is one ``serve.generate`` span with a request number of its
+    own (:mod:`repro_torch.runtime.spans`); ``prefill_s``, ``decode_s``
+    and ``tune_init_s`` are sums of its spans.
     """
+    B, T = batch["tokens"].shape
     serve = serve or ServeConfig()
+    with spans.request(batch=B, length=T,
+                       new_tokens=serve.max_new_tokens) as req:
+        return _generate(model_cfg, batch, serve, session, req)
+
+
+def _generate(model_cfg, batch, serve, session, req) -> dict[str, Any]:
     tcfg = serve.tuning
     if tcfg.kernel_tuning not in KERNEL_TUNING_MODES:
         raise ValueError(
@@ -214,7 +231,6 @@ def generate(
     decode = model.decode_step
 
     # ---- online tuning: step-programs + constituent kernels -------------
-    tune_init_s = 0.0
     decode_state: dict[str, Any] = {}
     if tune_kernels:
         # Hierarchical registration, kernel level: the model's
@@ -223,12 +239,9 @@ def generate(
         # regeneration slots from the same shared budget as the
         # step-programs. Untunable shapes (every point a hole at a
         # reduced size) are skipped, not fatal.
-        t_init = time.perf_counter()
         session.attach_kernels(model_cfg, batch=B, seq=T, max_len=max_len,
                                device=device)
-        tune_init_s += time.perf_counter() - t_init
     if tune_program:
-        t_init = time.perf_counter()
         # The compilette's chunk options are bounded by the BUCKETED
         # extent, matching the bucketed specialization key the
         # session registers under — so seq 120 and 150 build the
@@ -247,7 +260,6 @@ def generate(
         # pre-existing) evaluator at THIS request's inputs so measurements
         # stay representative of live traffic.
         prefill.tuner.evaluator.make_args = prefill_ev.make_args
-        tune_init_s += time.perf_counter() - t_init
 
     # The session scope stays active for the whole request: step-programs
     # run in here adopt tuned kernel block sizes, and any eager kernel
@@ -259,7 +271,7 @@ def generate(
             return _generate_inner(
                 model_cfg, model, params, batch, serve, session,
                 prefill, decode, B, T, max_len, tuning, tune_program,
-                tune_init_s, decode_state, device)
+                decode_state, req)
     finally:
         if own_session:
             session.close()
@@ -268,7 +280,7 @@ def generate(
 def _generate_inner(
     model_cfg, model, params, batch, serve, session,
     prefill, decode, B, T, max_len, tuning, tune_program,
-    tune_init_s, decode_state, device,
+    decode_state, req,
 ) -> dict[str, Any]:
     # Busy-time credit for unmanaged step-programs: with kernel-only
     # tuning the prefill/decode calls are real traffic a busy-time
@@ -276,14 +288,13 @@ def _generate_inner(
     # managed step reports its own calls — never double-credit).
     credit_busy = tuning and not tune_program
 
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, batch)
-    if credit_busy:
-        block_until_ready(logits)
-        session.observe_busy(time.perf_counter() - t0)
-    cache = widen_cache(model, cache, B, max_len)
-    block_until_ready(cache[0])
-    t_prefill = time.perf_counter() - t0
+    with spans.span("serve.prefill") as sp_prefill:
+        logits, cache = prefill(params, batch)
+        if credit_busy:
+            _sync(logits)
+            session.observe_busy(sp_prefill.elapsed())
+        cache = widen_cache(model, cache, B, max_len)
+        _sync(cache[0])
 
     tokens = torch.argmax(logits[:, -1], dim=-1)[:, None]
     out_tokens = [tokens]
@@ -292,7 +303,6 @@ def _generate_inner(
     if tune_program:
         # The decode evaluator replays the *current* decoding state; its
         # outputs are discarded, so measurement is side-effect-free.
-        t_init = time.perf_counter()
         decode_state.update(cache=cache, tokens=tokens, pos=pos0)
         max_len_b = session.coordinator.lifecycle.bucket_length(max_len)
         decode_ev = Evaluator(
@@ -306,37 +316,37 @@ def _generate_inner(
             reference_fn=decode,
         )
         decode.tuner.evaluator.make_args = decode_ev.make_args
-        tune_init_s += time.perf_counter() - t_init
 
-    t1 = time.perf_counter()
     for i in range(serve.max_new_tokens - 1):
-        t_step = time.perf_counter()
-        logits, cache = decode(params, cache, tokens, pos0 + i)
-        tokens = torch.argmax(logits[:, -1], dim=-1)[:, None]
-        out_tokens.append(tokens)
-        if tuning:
-            if credit_busy:
-                # sync before crediting: CUDA launches are asynchronous,
-                # so without it the credited interval would be the enqueue
-                # time (µs) while the device executes inside the final
-                # sync — and a busy-time budget would starve exactly the
-                # kernel tuning this credit exists to fund
-                block_until_ready(tokens)
-                session.observe_busy(time.perf_counter() - t_step)
-            if tune_program:
-                decode_state.update(
-                    cache=cache, tokens=tokens, pos=pos0 + i + 1)
-            session.maybe_pump()
-    block_until_ready(tokens)
-    t_decode = time.perf_counter() - t1
+        with spans.span("serve.decode_step") as step:
+            logits, cache = decode(params, cache, tokens, pos0 + i)
+            tokens = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            out_tokens.append(tokens)
+            if tuning:
+                if credit_busy:
+                    # sync before crediting: CUDA launches are asynchronous,
+                    # so without it the credited interval would be the
+                    # enqueue time (µs) while the device executes inside
+                    # the final sync — and a busy-time budget would starve
+                    # exactly the kernel tuning this credit exists to fund
+                    _sync(tokens)
+                    session.observe_busy(step.elapsed())
+                if tune_program:
+                    decode_state.update(
+                        cache=cache, tokens=tokens, pos=pos0 + i + 1)
+                session.maybe_pump()
+    _sync(tokens)
+    # the decode steps and the sync that closes them
+    t_decode = req.kid_seconds("serve.decode_step") + req.kid_seconds("serve.sync")
 
     generated = torch.cat(out_tokens, dim=1)
-    n_new = generated.shape[1]
+    n_decoded = generated.shape[1] - 1     # the prefill gave the first
     out = {
         "tokens": generated,
-        "prefill_s": t_prefill,
+        "prefill_s": sp_prefill.seconds,
         "decode_s": t_decode,
-        "decode_tokens_per_s": B * n_new / t_decode if t_decode > 0 else 0.0,
+        "decode_tokens_per_s": (B * n_decoded / t_decode
+                                if t_decode > 0 else 0.0),
     }
     if tuning:
         session.save()
@@ -344,7 +354,7 @@ def _generate_inner(
         # evaluator closures pinning this request's params/batch/cache,
         # and tuners idle past the eviction horizon are unregistered.
         session.sweep()
-        out["tune_init_s"] = tune_init_s
+        out["tune_init_s"] = req.kid_seconds("tune.register")
         out["kernel_tuning"] = serve.tuning.kernel_tuning
         out["autotune"] = session.stats()
     return out

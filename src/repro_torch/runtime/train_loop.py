@@ -65,6 +65,7 @@ from repro_torch.interop import resolve_device
 from repro_torch.models.model import build_model
 from repro_torch.models.params import init_tree
 from repro_torch.optim.adamw import AdamW, OptimizerConfig
+from repro_torch.runtime.spans import mark
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 __all__ = ["FaultInjected", "TrainLoopConfig", "train", "train_tuning_defaults"]
@@ -107,18 +108,6 @@ class FaultInjected(RuntimeError):
     pass
 
 
-@contextlib.contextmanager
-def _mark(name: str, device: torch.device):
-    """A profiler range around one phase of the step. Under the profiler,
-    and only there, it ends in a device sync, so each kernel of the phase
-    starts inside the range's host interval; with no profiler running it
-    costs one ``record_function``."""
-    with torch.profiler.record_function(name):
-        yield
-        if device.type == "cuda" and torch.autograd.profiler._is_profiler_enabled:
-            torch.cuda.synchronize(device)
-
-
 def _make_step(model, optimizer, ef: ErrorFeedback | None, cfg: ModelConfig):
     """One training step: loss and gradients by autograd, optional
     compression, then the functional AdamW update. Leaves its arguments
@@ -129,11 +118,11 @@ def _make_step(model, optimizer, ef: ErrorFeedback | None, cfg: ModelConfig):
         live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
         dev = live[0].device
         with torch.enable_grad():
-            with _mark("forward", dev):
+            with mark("forward", dev):
                 loss = model.loss(tree_unflatten(params, live), batch)
-            with _mark("backward", dev):
+            with mark("backward", dev):
                 grads = tree_unflatten(params, list(torch.autograd.grad(loss, live)))
-        with torch.no_grad(), _mark("update", dev):
+        with torch.no_grad(), mark("update", dev):
             if ef is not None:
                 grads, ef_state = ef.apply(grads, ef_state)
             params, opt_state, gnorm = optimizer.update(grads, opt_state, params)
