@@ -1288,13 +1288,13 @@ def run_families(dev) -> dict:
     moe = get_config("qwen3-moe-30b-a3b")
     cut = dataclasses.replace(moe, n_layers=FAMILY_RUNS[0][1])
     out["profile_moe"] = profile_serve(dev, cut, decode_steps=MOE_PROFILE_DECODE_STEPS)
-    # the expert weights every dispatch slice reads, at HBM's rate
-    expert_bytes = cut.n_layers * cut.top_k * 3 * cut.n_experts * cut.d_model * cut.d_ff * 4
+    # the expert weights a decode step's one stacked dispatch reads, at HBM's rate
+    expert_bytes = cut.n_layers * 3 * cut.n_experts * cut.d_model * cut.d_ff * 4
     out["profile_moe"]["expert_bytes_per_step"] = expert_bytes
     out["profile_moe"]["expert_bytes_bound_ms"] = 1e3 * expert_bytes / PEAK_BYTES_S
-    print(f"  qwen3-moe: every step reads the experts {cut.top_k} times, "
-          f"{expert_bytes / 1e9:.1f} GB: {out['profile_moe']['expert_bytes_bound_ms']:.1f} ms "
-          f"at {PEAK_BYTES_S / 1e12:.2f} TB/s, prefill or decode step alike")
+    print(f"  qwen3-moe: a decode step reads the experts once, all {cut.top_k} routing "
+          f"choices stacked, {expert_bytes / 1e9:.1f} GB: "
+          f"{out['profile_moe']['expert_bytes_bound_ms']:.1f} ms at {PEAK_BYTES_S / 1e12:.2f} TB/s")
     gc.collect()
     torch.cuda.empty_cache()
     out["moe_logits"] = check_moe_logits(dev)

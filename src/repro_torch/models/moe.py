@@ -1,11 +1,20 @@
 """Mixture-of-Experts FFN: GShard-style grouped capacity dispatch.
 
 Mirrors ``repro/models/moe.py``. Tokens are reshaped into groups of
-``moe_group_size`` (the ragged tail zero-padded); each of the top-k
-routing choices is dispatched as an independent top-1 slice, with a
-one-hot dispatch tensor (G, S, E, C) at capacity C. Dropped tokens
-(capacity overflow) pass through with zero contribution, as in
-GShard/Switch. A load-balancing auxiliary loss is returned.
+``moe_group_size`` (the ragged tail zero-padded). Each of the top-k
+routing choices keeps the reference's top-1 slice semantics: slice j
+places a token in its expert's queue by a cumsum over the group, at
+capacity C per expert and slice, and a choice past C is dropped (it
+passes through with zero contribution, as in GShard/Switch). The port
+stacks the k slices along the capacity axis (slot ``j * C + pos`` of
+an expert's k * C), so one dispatch tensor carries them all and the
+expert products run once over the stack: a pass reads each expert's
+weights once, where the reference's loop of k dispatches reads them k
+times. Only the order of the combine's summation differs. The stack
+runs in chunks of ``max(1, G // top_k)`` groups, so a chunk's
+intermediates are no larger than one of the reference's slices when
+G >= top_k; a decode step (one group) is one pass. A load-balancing
+auxiliary loss is returned.
 
 The reference's ``shard`` annotations stand at its own sites. Under
 DTensor (a sharded run) the routing and the dispatch have no DTensor
@@ -17,11 +26,9 @@ groups and its own experts (``expert`` -> ``model``; the weights'
 FSDP dim is gathered first), whose combined output is a partial sum over
 the model axis that the closing ``shard`` reduces. The load-balancing
 loss takes each rank's sums over its groups, reduced over the batch
-axes. The router and the expert products are ``torch.einsum`` in full
-fp32: the reference computes them outside any Pallas kernel. Each of the ``top_k``
-slices runs the expert products over all ``E`` experts at capacity
-``C``, so a step reads every expert's weights ``top_k`` times, prefill
-or decode alike; the port keeps that dispatch, as the reference has it.
+axes. The router (in fp32) and the expert products are plain PyTorch
+products (``@``, ``bmm``): the reference computes them outside any
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -66,7 +73,7 @@ def route(xg: torch.Tensor, router: torch.Tensor, k: int):
     go to the lower expert index first, as ``jax.lax.top_k`` orders
     them: a stable descending sort, where ``torch.topk`` promises no
     order among ties."""
-    logits = torch.einsum("gsd,de->gse", xg.to(torch.float32), router.to(torch.float32))
+    logits = xg.to(torch.float32) @ router.to(torch.float32)           # (G, S, E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_w, gate_idx = gate_w[..., :k], gate_idx[..., :k]
@@ -75,47 +82,69 @@ def route(xg: torch.Tensor, router: torch.Tensor, k: int):
 
 
 def _aux_loss(probs: torch.Tensor, gate_idx: torch.Tensor, E: int, k: int):
-    """Switch/GShard load-balancing aux loss over all tokens."""
-    me = probs.mean(dim=(0, 1))                                          # (E,)
-    ce = _expert_counts(gate_idx, E).mean(dim=(0, 1)) / k
-    return E * torch.sum(me * ce)
+    """Switch/GShard load-balancing aux loss over all tokens: E times the
+    mean probability of each expert dotted with its share of the choices."""
+    n = gate_idx.shape[0] * gate_idx.shape[1]
+    return torch.dot(probs.mean(dim=(0, 1)), _expert_counts(gate_idx, E)) * (E / (n * k))
 
 
 def _expert_counts(gate_idx: torch.Tensor, E: int) -> torch.Tensor:
-    return F.one_hot(gate_idx, E).to(torch.float32).sum(dim=2)          # (G, S, E)
+    """The top-k choices each expert got, (E,) in fp32."""
+    return F.one_hot(gate_idx, E).sum(dim=(0, 1, 2), dtype=torch.float32)
+
+
+def _slots(gate_w, gate_idx, C: int, E: int, dtype):
+    """The dispatch and combine tensors (G, S, E * k * C) of all k routing
+    choices at once. Choice j of a token takes slot ``j * C + pos`` of its
+    expert's k * C, ``pos`` its place in that expert's queue of slice j (a
+    cumsum over the group, per slice, as the reference's top-1 slices have
+    it); a choice at ``pos >= C`` is dropped (a zero there). The combine
+    holds the choice's gate in the same slot."""
+    G, S, k = gate_idx.shape
+    onehot = F.one_hot(gate_idx, E)                                     # (G, S, k, E)
+    # the choice's place in its expert's queue of its slice, from 1
+    n = torch.cumsum(onehot, dim=1).gather(-1, gate_idx[..., None])[..., 0]
+    keep = (n <= C).to(dtype)                                           # (G, S, k)
+    # one slot a choice; a dropped one's (clamped) slot gets the zero
+    slot = (gate_idx * (k * C) + n.clamp(max=C)
+            + torch.arange(-1, k * C - 1, C, device=gate_idx.device))
+    dispatch = torch.zeros(G, S, E * k * C, dtype=dtype, device=gate_idx.device)
+    combine = torch.zeros_like(dispatch).scatter_(-1, slot, keep * gate_w.to(dtype))
+    return dispatch.scatter_(-1, slot, keep), combine
 
 
 def _experts(xg, gate_w, gate_idx, w_gate, w_up, w_down, cfg: ModelConfig,
              C: int, experts: "tuple[int, int] | None" = None):
-    """The k top-1 dispatches through the experts ``experts`` (a
-    [lo, hi) range of the E; all when None): the combined output over
-    those experts."""
-    E, k = cfg.n_experts, cfg.top_k
-    out = torch.zeros_like(xg)
-    for j in range(k):                    # k independent top-1 dispatches
-        with spans.layer("moe.dispatch"):
-            onehot_e = F.one_hot(gate_idx[..., j], E).to(torch.float32)    # (G, S, E)
-            pos = (torch.cumsum(onehot_e, dim=1) * onehot_e).sum(dim=-1) - 1.0  # (G, S)
-            keep = (pos < C).to(torch.float32)
-            # a dropped token's slot (pos >= C) is masked by keep; the
-            # reference's one_hot gives it a zero row, torch's refuses it
-            pos_oh = F.one_hot(pos.to(torch.int64).clamp(max=C - 1), C).to(torch.float32)
-            dispatch = (onehot_e[..., None] * pos_oh[..., None, :]
-                        * keep[..., None, None]).to(xg.dtype)               # (G,S,E,C)
-            if experts is not None:
-                dispatch = dispatch[:, :, experts[0]:experts[1]]
-            xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)               # (G,E,C,d)
+    """All k routing choices through the experts ``experts`` (a [lo, hi)
+    range of the E; all when None), stacked, in chunks of
+    ``max(1, G // k)`` groups: the combined output over those experts.
+    The products are ``bmm``: the dispatch over each group's tokens, the
+    experts over each expert's k * C slots of every group in the chunk,
+    the combine over each group's slots."""
+    G, S, d = xg.shape
+    k = cfg.top_k
+    lo, hi = experts or (0, cfg.n_experts)
+    E, kC = hi - lo, k * C
+    step = max(1, G // k)
+    outs = []
+    for g0 in range(0, G, step):
+        chunk = slice(g0, g0 + step)
+        xc = xg[chunk]
+        g = xc.shape[0]
+        with spans.layer("moe.dispatch", slices=k, groups=g):
+            dispatch, combine = _slots(gate_w[chunk], gate_idx[chunk], C,
+                                       cfg.n_experts, xg.dtype)
+            dispatch, combine = dispatch[..., lo * kC:hi * kC], combine[..., lo * kC:hi * kC]
+            xe = torch.bmm(dispatch.transpose(1, 2), xc).view(g, E, kC, d)
             xe = shard(xe, "groups", "expert", None, None)
+            xe = xe.transpose(0, 1).reshape(E, g * kC, d)       # a view at one group
         with spans.layer("moe.experts"):
-            g = torch.einsum("gecd,edf->gecf", xe, w_gate)
-            u = torch.einsum("gecd,edf->gecf", xe, w_up)
-            h = F.silu(g) * u
-            ye = torch.einsum("gecf,efd->gecd", h, w_down)
-            ye = shard(ye, "groups", "expert", None, None)
+            h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+            ye = torch.bmm(h, w_down).view(E, g, kC, d).transpose(0, 1)
+            ye = shard(ye, "groups", "expert", None, None)      # (G, E, kC, d)
         with spans.layer("moe.combine"):
-            combine = dispatch * gate_w[..., j].to(xg.dtype)[..., None, None]
-            out = out + torch.einsum("gsec,gecd->gsd", combine, ye)
-    return out
+            outs.append(torch.bmm(combine, ye.reshape(g, E * kC, d)))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def _moe_sharded(xg, p: dict, cfg: ModelConfig, C: int):
@@ -136,8 +165,7 @@ def _moe_sharded(xg, p: dict, cfg: ModelConfig, C: int):
 
     def routing(xl, rl):
         probs, gate_w, gate_idx = route(xl, rl, k)
-        return (probs.sum(dim=(0, 1)), gate_w, gate_idx,
-                _expert_counts(gate_idx, E).sum(dim=(0, 1)))
+        return probs.sum(dim=(0, 1)), gate_w, gate_idx, _expert_counts(gate_idx, E)
 
     with spans.layer("moe.route"):
         p_sum, gate_w, gate_idx, c_sum = shlib.on_local(
@@ -179,8 +207,9 @@ def _shards(x, dim: int) -> int:
 
 def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, d) -> (out, aux_loss): one ``moe`` span of the layer tier
-    (:mod:`repro_torch.runtime.spans`), with ``moe.route`` and, per top-k
-    slice, ``moe.dispatch``, ``moe.experts`` and ``moe.combine`` inside."""
+    (:mod:`repro_torch.runtime.spans`), with ``moe.route`` and, per chunk
+    of groups, ``moe.dispatch`` (attributes ``slices``, ``groups``),
+    ``moe.experts`` and ``moe.combine`` inside."""
     with spans.layer("moe"):
         return _moe_ffn(x, p, cfg)
 

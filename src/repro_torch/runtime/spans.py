@@ -31,9 +31,12 @@ The spans, by tier:
   ``tune.evaluate`` (one candidate's measurement, attribute ``kernel``:
   the interval the tuner adds to ``eval_spent_s``);
 * layer: ``moe`` (one ``moe_ffn`` call); ``moe.route`` (the router, the
-  top-k, the load-balancing loss); per top-k slice ``moe.dispatch``
-  (masks, dispatch tensor, gather), ``moe.experts`` (gate, up, SiLU,
-  down) and ``moe.combine`` (the weighted scatter back to the tokens).
+  top-k, the load-balancing loss); per chunk of groups (one in a decode
+  step) ``moe.dispatch`` (positions, the stacked dispatch tensor of all
+  top-k slices, gather; attributes ``slices``, the top-k, and ``groups``,
+  the chunk's groups), ``moe.experts`` (gate, up, SiLU, down, once over
+  the stack) and ``moe.combine`` (the weighted scatter back to the
+  tokens).
 
 A span opened on a thread inside :func:`request` carries that request's
 number; its parent is the span open on the same thread when it opened.
@@ -190,12 +193,13 @@ def span(name: str, **attrs: Any) -> _Open:
 _NULL = contextlib.nullcontext()
 
 
-def layer(name: str) -> "_Open | contextlib.nullcontext":
-    """A layer-tier span: recorded under a running profiler or inside
-    :func:`recording`, else the shared null context."""
+def layer(name: str, **attrs: Any) -> "_Open | contextlib.nullcontext":
+    """A layer-tier span, with ``attrs`` as :func:`span` takes them:
+    recorded under a running profiler or inside :func:`recording`, else
+    the shared null context."""
     if not (_recording or _profiler._is_profiler_enabled):
         return _NULL
-    return _Open(name, None)
+    return _Open(name, attrs or None)
 
 
 @contextlib.contextmanager

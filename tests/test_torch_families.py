@@ -143,6 +143,139 @@ def test_moe_dropped_tokens_contribute_zero():
     np.testing.assert_allclose(tout, jout, **TOL)
 
 
+#: (top_k, tokens): one group of 32; one ragged chunk of 5 groups
+#: (top 1); 5 groups in chunks of 2, 2, 1 (top 2); 3 groups, each its own
+#: chunk (1 < G < top 8); 17 groups in 9 chunks (top 8). Every token
+#: count past 32 leaves a zero-padded tail, but 544 (17 whole groups).
+STACKED = [(1, 32), (1, 153), (2, 32), (2, 153), (8, 32), (8, 91), (8, 544)]
+HOT = 3          # the expert half of each group picks first
+
+
+def _forced_routing(k: int, n: int, E: int, d: int, seed: int = 0):
+    """Inputs whose router logits (an identity router over the first E
+    features) put each token's k choices in a set order, margins 0.5
+    apart and 2.5 above the rest: the even tokens of a group choose
+    expert ``HOT`` first (16 of 32, past capacity 4), tokens 1, 9, 17, 25
+    choose it second (4, within capacity), no other token chooses it, and
+    the rest are drawn at random. Returns x (n, d), the router (d, E) and
+    the choices (n, k)."""
+    rng = np.random.default_rng(seed)
+    choices = np.empty((n, k), np.int64)
+    for i in range(n):
+        s = i % 32
+        first = [HOT] if s % 2 == 0 else []
+        if k >= 2 and s % 8 == 1:
+            first = [int(rng.choice([e for e in range(E) if e != HOT])), HOT]
+        rest = [e for e in rng.permutation(E) if e not in first and e != HOT]
+        choices[i] = (first + rest)[:k]
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x[:, :E] = rng.uniform(-1.0, 0.0, (n, E))
+    for j in range(k):
+        x[np.arange(n), choices[:, j]] = 6.0 - 0.5 * j
+    router = np.zeros((d, E), np.float32)
+    router[np.arange(E), np.arange(E)] = 1.0
+    return x, router, choices
+
+
+def _kept(choices: np.ndarray, C: int, S: int = 32) -> np.ndarray:
+    """(n, k): whether each choice keeps its slot, counting each slice's
+    queue per expert and group on its own (padding comes last and takes
+    no real token's slot)."""
+    n, k = choices.shape
+    keep = np.zeros((n, k), bool)
+    for j in range(k):
+        for g0 in range(0, n, S):
+            seen = np.zeros(choices.max() + 1, int)
+            for i in range(g0, min(g0 + S, n)):
+                keep[i, j] = seen[choices[i, j]] < C
+                seen[choices[i, j]] += 1
+    return keep
+
+
+@pytest.mark.parametrize("k,n", STACKED, ids=[f"top{k}-{n}" for k, n in STACKED])
+def test_the_stacked_dispatch_keeps_each_slices_capacity(k, n):
+    """All top-k slices dispatched in one stack keep and drop what the
+    reference's k top-1 slices do: capacity C per expert and per slice,
+    never pooled. An expert past capacity in slice 0 and within it in
+    slice 1 of the same group; the port's zeroed shares are those of a
+    per-slice count; both packages' outputs equal that count's sum."""
+    from repro_torch.models.moe import _slots
+
+    E = 16
+    jcfg, tcfg = cfgs("qwen3-moe-30b-a3b", top_k=k, n_experts=E)
+    p = ffn_params(to_np(jax_init(jax_build(jcfg).param_defs(), jax.random.PRNGKey(0))))
+    x, p["router"], choices = _forced_routing(k, n, E, jcfg.d_model)
+    C = capacity(tcfg, 32)
+    keep = _kept(choices, C)
+    first = keep[np.arange(0, n, 2), 0]
+    assert C == 4 and not first.all() and first.any()
+    if k >= 2:
+        assert keep[np.arange(1, n, 8), 1].all()     # the same expert, its other slice
+    jout, _ = jax_moe_ffn(jnp.asarray(x[None]), jax.tree.map(jnp.asarray, p), jcfg)
+    tout, _ = moe_ffn(torch.from_numpy(x[None]), jax.tree.map(torch.from_numpy, p), tcfg)
+
+    # the port's shares: slice j's slots of the chosen expert hold the gate or 0
+    G = -(-n // 32)
+    xg = np.concatenate([x, np.zeros((G * 32 - n, x.shape[1]), np.float32)])
+    _, gate_w, gate_idx = route(torch.from_numpy(xg).reshape(G, 32, -1),
+                                torch.from_numpy(p["router"]), k)
+    np.testing.assert_array_equal(gate_idx.reshape(-1, k)[:n].numpy(), choices)
+    dispatch, combine = _slots(gate_w, gate_idx, C, E, torch.float32)
+    per_slice = lambda t: t.reshape(G * 32, E, k, C).sum(-1)[:n]   # noqa: E731
+    rows = np.arange(n)[:, None]
+    np.testing.assert_array_equal(per_slice(dispatch).numpy()[rows, choices, np.arange(k)],
+                                  keep.astype(np.float32))
+    assert float(per_slice(dispatch).sum()) == keep.sum()
+    shares = per_slice(combine).numpy()[rows, choices, np.arange(k)]
+    np.testing.assert_array_equal(shares, np.where(keep, gate_w.reshape(-1, k)[:n], 0.0))
+
+    # each token's output: the kept choices' gated experts
+    logits = x[:, :E].astype(np.float64)
+    top = np.take_along_axis(logits, choices, 1)
+    gate = np.exp(top - top.max(1, keepdims=True))
+    gate /= gate.sum(1, keepdims=True)
+
+    def expert(e, v):
+        g, u = v @ p["w_gate"][e], v @ p["w_up"][e]
+        return (g / (1 + np.exp(-g)) * u) @ p["w_down"][e]
+
+    y = np.stack([[expert(e, x[i].astype(np.float64)) for e in choices[i]]
+                  for i in range(n)])                                    # (n, k, d)
+    want = np.einsum("nk,nkd->nd", gate * keep, y)
+    every = np.einsum("nk,nkd->nd", gate, y)
+    assert np.abs(every - want).max() > 100 * TOL["atol"]   # the drops show
+    np.testing.assert_allclose(np.asarray(jout)[0], want, **TOL)
+    np.testing.assert_allclose(tout[0].numpy(), want, **TOL)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+
+
+def test_a_decode_moe_call_dispatches_as_many_ops_at_any_top_k():
+    """One reduced ``moe_ffn`` call at one group (a decode step's 8 tokens)
+    runs the same number of aten ops at top 2, 4 and 8: the slices share
+    one dispatch, one pass of the experts and one combine, so no launch
+    is made per slice."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = {}
+    for k in (2, 4, 8):
+        cfg = get_config("qwen3-moe-30b-a3b").reduced(top_k=k, n_experts=16)
+        params = init_tree(build_model(cfg).param_defs(), torch.Generator().manual_seed(0))
+        lp = {n: v[0] for n, v in params["layers"]["ffn"].items()}
+        x = torch.randn(8, 1, cfg.d_model, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad(), Count() as c:
+            out, aux = moe_ffn(x, lp, cfg)
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        counts[k] = c.n
+    assert counts[2] == counts[4] == counts[8], counts
+
+
 def test_capacity_is_the_references():
     for arch in MOE + ["deepseek-7b"]:
         for factor in (0.01, 1.25, 8.0):

@@ -107,7 +107,8 @@ def test_an_off_layer_tier_reads_no_clock_and_records_nothing(moe, monkeypatch):
     clock = CountingClock()
     monkeypatch.setattr(spans, "_clock", clock)
     before = len(spans.records()), spans.dropped()
-    assert spans.layer("moe") is spans.layer("moe.dispatch")   # the shared null context
+    # the shared null context, attributes or none
+    assert spans.layer("moe") is spans.layer("moe.dispatch", slices=2, groups=1)
     with torch.no_grad():
         logits, cache = model.prefill(params, {"tokens": tokens})
     assert clock.calls == 0
@@ -126,7 +127,8 @@ def test_layer_spans_lie_on_the_profilers_clock(moe):
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]) as prof:
         model.prefill(params, {"tokens": tokens})
     dispatch = [r for r in new_records(start) if r.name == "moe.dispatch"]
-    assert len(dispatch) == cfg.n_layers * cfg.top_k and all(r.profiled for r in dispatch)
+    # one group of 24 tokens: one stacked dispatch a layer
+    assert len(dispatch) == cfg.n_layers and all(r.profiled for r in dispatch)
     base = prof.profiler.kineto_results.trace_start_ns()
     ranges = sorted((e for e in prof.events() if e.name == "moe.dispatch"),
                     key=lambda e: e.time_range.start)
@@ -148,7 +150,10 @@ def test_layer_spans_lie_on_the_profilers_clock(moe):
     assert checked >= len(dispatch) * 5
 
 
-def test_a_reduced_moe_decode_step_records_each_slice_under_recording(moe):
+def test_a_reduced_moe_decode_step_records_one_stacked_dispatch_a_layer_under_recording(moe):
+    """A decode step is one group: each layer records one ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine``, the dispatch carrying all top-k
+    slices of that one group."""
     cfg, model, params, tokens = moe
     with torch.no_grad():
         logits, cache = model.prefill(params, {"tokens": tokens})
@@ -158,11 +163,15 @@ def test_a_reduced_moe_decode_step_records_each_slice_under_recording(moe):
         start = last_id()
         with spans.recording():
             model.decode_step(params, cache, tok, tokens.shape[1])
-    counts = collections.Counter(r.name for r in new_records(start))
-    n = cfg.n_layers * cfg.top_k
+    recs = new_records(start)
+    counts = collections.Counter(r.name for r in recs)
+    n = cfg.n_layers
     assert cfg.n_layers >= 2 and cfg.top_k >= 2
-    assert counts == {"moe": cfg.n_layers, "moe.route": cfg.n_layers,
+    assert counts == {"moe": n, "moe.route": n,
                       "moe.dispatch": n, "moe.experts": n, "moe.combine": n}
+    for r in recs:
+        want = {"slices": cfg.top_k, "groups": 1} if r.name == "moe.dispatch" else None
+        assert r.attrs == want, r
 
 
 @pytest.fixture(scope="module")
