@@ -39,7 +39,7 @@ def readings(cell_name: str, seeds: list[int], device="cuda:0", *, log=print,
     out = []
     for seed in seeds:
         t0 = time.perf_counter()
-        ctx = runner.setup(cell, seed, device)
+        ctx = runner.setup(cell, seed, device, root=ROOT)
         t1 = time.perf_counter()
         window = runner.measure(ctx, 0.0)           # the first cycle only
         runner.close_session(ctx)

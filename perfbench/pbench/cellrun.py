@@ -40,7 +40,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device, t_star
              limits: dict | None = None, root=spec.ROOT) -> dict:
     """The result object of one run (the contract's last line)."""
     device = torch.device(device)
-    ctx = runner.setup(cell, seed, device, conf=conf, mix_spec=mix_spec)
+    ctx = runner.setup(cell, seed, device, conf=conf, mix_spec=mix_spec, root=root)
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.3f} s (builds {ctx.build_s})")
     window = runner.measure(ctx, seconds)

@@ -7,9 +7,11 @@ reference: each sequence, its prompt and its served tokens, in float32.
 A served token is greedy, so the reference's logit of it should be its
 best up to rounding: the number compared is the widest gap by which a
 served token's reference logit lies below the reference's best logit at
-that position. Its limit is the cell's (``perfbench/limits/<cell>.json``),
-set from the program's readings on a dozen seeds and more and from the
-control's (the reference itself in float8 products: :func:`control_gaps`).
+that position. The reference is the kind's ``served_logits``
+(``perfbench/reference/<kind>.py``). Its limit is the cell's
+(``perfbench/limits/<cell>.json``), set from the program's readings on a
+dozen seeds and more and from the control's (the reference itself in
+float8 products: :func:`control_gaps`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ from __future__ import annotations
 import torch
 
 from pbench import traffic
-from pbench.spec import reference
 
 GAP = "max_logit_gap"
 MEAN = "mean_logit_gap"
@@ -51,7 +52,7 @@ def compare(ctx, batches, *, witnesses: tuple[str, ...] = ()) -> dict:
     ``witnesses`` (``"fp8"``: the control; ``"bf16"``), the gaps of the
     tokens the reference in those products puts first."""
     conf = ctx.conf
-    ref = reference(conf)
+    ref = ctx.kind
     gaps: list = []
     other: dict[str, list] = {w: [] for w in witnesses}
     n_tokens = n_requests = 0

@@ -7,26 +7,30 @@ starts (no registry), so all online tuning falls inside the window. The
 window holds whole cycles of the mix's prompt lengths: a cycle starts
 only if the previous cycle's time says it will end within the window.
 
-Set-up builds (or loads) the kernel families the session can launch,
-draws the weights on the device, and warms each shape the mix serves
-(prefill, the cache at its decode length, two decode steps) without a
-session.
+Set-up builds (or loads) the kernel families the session can launch
+(the kind's ``families``, or :data:`FAMILIES`), draws the weights on the
+device, and warms each shape the mix serves (prefill, the cache at its
+decode length, two decode steps) without a session.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Any, Callable
 
 import torch
 
-from pbench import traffic, weights
+from pbench import spec, traffic, weights
 from pbench.model import program_config
-from pbench.shapes import shapes
 from pbench.spec import Cell
+
+#: the kernel families set-up builds where the kind names none
+FAMILIES = ("matmul", "attention", "rmsnorm")
 
 
 def sync(device) -> None:
@@ -75,9 +79,11 @@ class Ctx:
     conf: dict               # the configuration as it is run
     seed: int
     device: torch.device
+    kind: Any                # the configuration's kind module (perfbench/reference/)
     shapes: Any
     mix: traffic.Mix
     cfg: Any                 # the program's ModelConfig
+    model_cls: type          # the class the program builds for cfg
     params: dict
     prompts: traffic.Prompts
     serve_cfg: Any
@@ -88,51 +94,52 @@ class Ctx:
 
 
 # ------------------------------------------------------------------ set-up
-def build_families(device) -> dict:
+def build_families(device, families=FAMILIES) -> dict:
     """Build (once per checkout) and load the hand-kernel families the
-    serving session can launch, in parallel: seconds each."""
-    from repro_torch.kernels.attention import attention
-    from repro_torch.kernels.matmul import matmul
-    from repro_torch.kernels.rmsnorm import rmsnorm
-
-    mods = {"matmul": matmul, "attention": attention, "rmsnorm": rmsnorm}
+    serving session can launch (``repro_torch.kernels.<name>.<name>``),
+    in parallel: seconds each."""
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{n}.{n}") for n in families}
     with ThreadPoolExecutor(len(mods)) as pool:
         libs = {n: pool.submit(m.build_kernels, device) for n, m in mods.items()}
         return {n: f.result().build_s for n, f in libs.items()}
 
 
 def setup(cell: Cell, seed: int, device, *, conf: dict | None = None,
-          mix_spec: dict | None = None) -> Ctx:
+          mix_spec: dict | None = None, root: Path = spec.ROOT) -> Ctx:
     """Everything before the window. ``conf`` and ``mix_spec`` stand in for
-    the cell's files (tests run the harness on small shapes)."""
+    the cell's files (tests run the harness on small shapes); ``root`` is
+    the checkout whose ``perfbench/reference/`` holds the kind."""
     from repro_torch.api import serve_tuning_defaults
+    from repro_torch.models.model import build_model
     from repro_torch.runtime.serve_loop import ServeConfig
 
     device = torch.device(device)
     conf = conf or cell.config
     mix_spec = mix_spec or cell.mix
-    s = shapes(conf)
+    kind = spec.reference(conf, root)
+    s = kind.shapes(conf)
     mix = traffic.Mix.from_spec(mix_spec)
-    built = build_families(device) if device.type == "cuda" else {}
-    cfg = program_config(conf)
+    built = (build_families(device, getattr(kind, "families", FAMILIES))
+             if device.type == "cuda" else {})
+    cfg = program_config(conf, root)
+    model = build_model(cfg)
     params = weights.make_params(s, traffic.derive(seed, traffic.WEIGHTS), device,
                                  dtype=cfg.param_dtype)
     tuning = dataclasses.replace(serve_tuning_defaults(), **mix_spec["tuning"])
-    ctx = Ctx(cell=cell, conf=conf, seed=seed, device=device, shapes=s, mix=mix, cfg=cfg,
-              params=params, prompts=traffic.Prompts(mix, s.vocab, seed, device),
+    ctx = Ctx(cell=cell, conf=conf, seed=seed, device=device, kind=kind, shapes=s, mix=mix,
+              cfg=cfg, model_cls=type(model), params=params,
+              prompts=traffic.Prompts(mix, s.vocab, seed, device),
               serve_cfg=ServeConfig(max_new_tokens=mix.new_tokens, tuning=tuning),
               tuning=tuning, build_s=built)
-    warm(ctx)
+    warm(ctx, model)
     return ctx
 
 
-def warm(ctx: Ctx) -> None:
+def warm(ctx: Ctx, model) -> None:
     """Each (batch, length, cache length) the mix serves: prefill, the
     cache widened to its decode length, two decode steps; no session."""
-    from repro_torch.models.model import build_model
     from repro_torch.runtime.serve_loop import widen_cache
 
-    model = build_model(ctx.cfg)
     gen = torch.Generator(device=ctx.device).manual_seed(0)
     for b, t, max_len in ctx.mix.shapes():
         tokens = torch.randint(0, ctx.shapes.vocab, (b, t), generator=gen, device=ctx.device)
@@ -151,30 +158,34 @@ def warm(ctx: Ctx) -> None:
 # ------------------------------------------------------------------ window
 @contextlib.contextmanager
 def patched(owner: Any, name: str, make: Callable[[Callable], Callable]):
-    """``owner.name`` replaced by ``make(original)`` inside the block."""
+    """``owner.name`` replaced by ``make(original)`` inside the block (an
+    attribute ``owner`` inherits is shadowed there, and unshadowed after)."""
+    own = name in vars(owner)
     original = getattr(owner, name)
     setattr(owner, name, make(original))
     try:
         yield
     finally:
-        setattr(owner, name, original)
+        if own:
+            setattr(owner, name, original)
+        else:
+            delattr(owner, name)
 
 
 @contextlib.contextmanager
 def first_token_probe(ctx: Ctx):
     """Record the host time at which each prefill's logits are on the
-    device (a sync the serve loop makes right after the prefill anyway)."""
-    from repro_torch.models.transformer import TransformerLM
-
+    device (a sync the serve loop makes right after the prefill anyway),
+    on the class the program builds for the cell."""
     def make(prefill):
-        def probed(self, params, batch):
-            out = prefill(self, params, batch)
+        def probed(*args, **kwargs):
+            out = prefill(*args, **kwargs)
             sync(ctx.device)
             ctx.first_token[0] = time.perf_counter()
             return out
         return probed
 
-    with patched(TransformerLM, "prefill", make):
+    with patched(ctx.model_cls, "prefill", make):
         yield
 
 

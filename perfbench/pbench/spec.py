@@ -5,23 +5,28 @@ A cell (``workloads`` entry) names a configuration and a traffic mix.
 Each lives in a file of its own:
 
 * the configuration: the ``file`` of its ``configs`` entry
-  (``perfbench/configs/<config>.json``), which names its plain reference
-  ``perfbench/reference/<reference>.py``;
+  (``perfbench/configs/<config>.json``), which names its kind of block,
+  ``perfbench/reference/<reference>.py``: the one module that knows the
+  kind (its sizes, weights' layout, the port's config fields, the
+  yardstick's counts, the kernel families set-up builds, a tiny CPU
+  stand-in and the plain reference);
 * the traffic mix: ``perfbench/traffic/<traffic>.json``;
 * the limits of the comparison that decides ``correct``:
   ``perfbench/limits/<cell>.json``;
 * each metric, end-to-end or per-layer: a reader
   ``perfbench/metrics/<metric>.py`` with ``read(rec) -> float | None``.
 
-So a cell, a mix or a metric is added by adding files and entries; no
-file here names one.
+So a cell, a mix, a metric or a kind of block is added by adding files
+and entries; no file here names one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from typing import Any, Callable
 
@@ -73,13 +78,25 @@ def cell(name: str, root: Path = ROOT) -> Cell:
 
 
 def load_file_module(path: Path, prefix: str) -> Any:
-    """Import the Python file ``path`` under a private module name."""
-    mod_name = f"perfbench_{prefix}_{path.stem}".replace("-", "_").replace(".", "_")
+    """Import the Python file ``path`` once, under a private module name
+    registered in ``sys.modules`` (so that :func:`kind_of` finds a kind's
+    module from its sizes, and its dataclasses resolve); the same file
+    of two checkouts gets two names."""
+    path = Path(path).resolve()
+    tag = hashlib.sha1(str(path).encode()).hexdigest()[:12]
+    mod_name = f"perfbench_{prefix}_{path.stem}_{tag}".replace("-", "_").replace(".", "_")
+    if mod_name in sys.modules:
+        return sys.modules[mod_name]
     spec = importlib.util.spec_from_file_location(mod_name, path)
     if spec is None or spec.loader is None:
         raise ImportError(f"cannot load {path}")
     mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    sys.modules[mod_name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[mod_name]
+        raise
     return mod
 
 
@@ -89,6 +106,12 @@ def metric_reader(name: str, root: Path = ROOT) -> Callable[[dict], "float | Non
 
 
 def reference(config: dict, root: Path = ROOT) -> Any:
-    """The configuration's plain reference module."""
+    """The configuration's kind of block: the module
+    ``perfbench/reference/<reference>.py``."""
     return load_file_module(
         root / "perfbench" / "reference" / f"{config['reference']}.py", "reference")
+
+
+def kind_of(shapes: Any) -> Any:
+    """The kind module whose ``shapes`` made ``shapes``."""
+    return sys.modules[type(shapes).__module__]

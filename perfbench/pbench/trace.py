@@ -9,7 +9,8 @@ the calls' shapes that the roofline readers price.
 Ranges (all named ``perfbench.<name>``, stamped on the profiler's clock,
 Unix nanoseconds; the program is not edited, its functions are wrapped
 for the stretch only): ``window`` (the stretch),
-``generate``, ``prefill`` and ``decode_step`` (the model's steps),
+``generate``, ``prefill`` and ``decode_step`` (the steps of the model
+class the program builds for the cell),
 ``maybe_pump`` (the session's tuning slot), ``attention`` (the layers'
 attention entry, prefill and decode), ``flash`` (the flash-attention
 kernel's wrapper) and ``moe_ffn`` (the expert layer).
@@ -186,9 +187,9 @@ class Recorder:
 
 
 @contextlib.contextmanager
-def layer_ranges(rec: Recorder) -> Any:
+def layer_ranges(rec: Recorder, model_cls: type) -> Any:
     """The ranges and probes of the stretch, installed on the program's
-    functions for the block only."""
+    functions (and on ``model_cls``'s steps) for the block only."""
     from repro_torch.api import TuningSession
     from repro_torch.models import layers, transformer
     from pbench.runner import patched
@@ -230,9 +231,8 @@ def layer_ranges(rec: Recorder) -> Any:
         return wrapped
 
     with contextlib.ExitStack() as stack:
-        stack.enter_context(patched(transformer.TransformerLM, "prefill",
-                                    lambda fn: rec.ranged("prefill", fn)))
-        stack.enter_context(patched(transformer.TransformerLM, "decode_step", decode_step))
+        stack.enter_context(patched(model_cls, "prefill", lambda fn: rec.ranged("prefill", fn)))
+        stack.enter_context(patched(model_cls, "decode_step", decode_step))
         stack.enter_context(patched(TuningSession, "maybe_pump",
                                     lambda fn: rec.ranged("maybe_pump", fn)))
         for name in ("self_attention_with_cache", "decode_self_attention"):
@@ -267,7 +267,7 @@ def traced_stretch(ctx, first_index: int) -> dict:
             prof.stop()
 
     rec.stop = stop
-    with layer_ranges(rec), first_token_probe(ctx):
+    with layer_ranges(rec, ctx.model_cls), first_token_probe(ctx):
         sync(ctx.device)
         prof.start()
         rec.on = True

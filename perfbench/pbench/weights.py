@@ -2,57 +2,32 @@
 
 One buffer holds every parameter; one ``normal_`` call fills it from a
 ``torch.Generator`` on the device, then each leaf is scaled in place and
-the norm scales set to one. The tree is laid out as the port reads it:
-``tok.{embed,unembed}``, ``layers.*`` stacked on a leading layer axis,
-``ln_f``. Both the program and the plain reference read these tensors.
+the norm scales set to one. The leaves, their shapes and scales, and the
+tree they make (the one the port reads) are the kind's
+``param_layout(s)``, found from the sizes ``s`` themselves. Both the
+program and the plain reference read these tensors.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Any
 
 import torch
 
-from pbench.shapes import Shapes
+from pbench.spec import kind_of
 
 
-def param_layout(s: Shapes) -> list[tuple[tuple[str, ...], tuple[int, ...], float]]:
+def param_layout(s: Any) -> list[tuple[tuple[str, ...], tuple[int, ...], float]]:
     """(path, shape, scale) of every leaf; scale 0 marks a norm scale (ones)."""
-    L, d, ff = s.n_layers, s.d, s.d_ff
-    inv = lambda n: 1.0 / math.sqrt(n)
-    leaves = [
-        (("tok", "embed"), (s.vocab, d), 0.02),
-        (("tok", "unembed"), (d, s.vocab), inv(d)),
-        (("layers", "ln1"), (L, d), 0.0),
-        (("layers", "ln2"), (L, d), 0.0),
-        (("layers", "attn", "wq"), (L, d, s.heads, s.d_head), inv(d)),
-        (("layers", "attn", "wk"), (L, d, s.kv_heads, s.d_head), inv(d)),
-        (("layers", "attn", "wv"), (L, d, s.kv_heads, s.d_head), inv(d)),
-        (("layers", "attn", "wo"), (L, s.heads, s.d_head, d), inv(s.q_width)),
-        (("ln_f",), (d,), 0.0),
-    ]
-    if s.family == "moe":
-        E = s.experts
-        leaves += [
-            (("layers", "ffn", "router"), (L, d, E), inv(d)),
-            (("layers", "ffn", "w_gate"), (L, E, d, ff), inv(d)),
-            (("layers", "ffn", "w_up"), (L, E, d, ff), inv(d)),
-            (("layers", "ffn", "w_down"), (L, E, ff, d), inv(ff)),
-        ]
-    else:
-        leaves += [
-            (("layers", "ffn", "w_gate"), (L, d, ff), inv(d)),
-            (("layers", "ffn", "w_up"), (L, d, ff), inv(d)),
-            (("layers", "ffn", "w_down"), (L, ff, d), inv(ff)),
-        ]
-    return leaves
+    return kind_of(s).param_layout(s)
 
 
-def n_params(s: Shapes) -> int:
+def n_params(s: Any) -> int:
     return sum(math.prod(shape) for _p, shape, _s in param_layout(s))
 
 
-def make_params(s: Shapes, seed: int, device, dtype=torch.bfloat16) -> dict:
+def make_params(s: Any, seed: int, device, dtype=torch.bfloat16) -> dict:
     """The parameter tree of ``s`` drawn from ``seed`` on ``device``."""
     layout = param_layout(s)
     buf = torch.empty(sum(math.prod(shape) for _p, shape, _s in layout),

@@ -1,13 +1,22 @@
 """The yardstick: the H100's published peaks, and the operations and
 bytes the served work needs, counted from the configuration's shapes.
 
+The counts that depend on the kind of block (a token through the
+layers, the head, attention in prefill and in decode, one MoE call) are
+the kind module's (:func:`pbench.spec.kind_of`); a request's, a flash
+call's and the roofline are worked out here from them.
+
 Peaks: NVIDIA H100 Tensor Core GPU data sheet, SXM part at 700 W, dense
 rates (no sparsity). Operations are multiply-adds counted twice.
 """
 
 from __future__ import annotations
 
-from pbench.shapes import Shapes
+from typing import Any
+
+from pbench.spec import kind_of
+
+Shapes = Any    # a kind's sizes: what its ``shapes(conf)`` returns
 
 PEAK_BF16_FLOPS = 989e12     # dense bf16 tensor-core FLOP/s
 PEAK_HBM_BYTES_S = 3.35e12   # HBM3 bytes/s
@@ -15,31 +24,24 @@ BF16_BYTES = 2
 
 
 def linear_flops_per_token(s: Shapes) -> float:
-    """The products of one token through every layer: the attention
-    projections and the FFN at its active experts (the router's top-k
-    only, and its router), without the output head."""
-    attn = s.d * (2 * s.q_width + 2 * s.kv_width)
-    if s.family == "moe":
-        ffn = s.top_k * 3 * s.d * s.d_ff + s.d * s.experts
-    else:
-        ffn = 3 * s.d * s.d_ff
-    return 2.0 * s.n_layers * (attn + ffn)
+    """The products of one token through every layer at its active
+    parameters, without the output head."""
+    return kind_of(s).linear_flops_per_token(s)
 
 
 def head_flops(s: Shapes) -> float:
     """The output head at one position."""
-    return 2.0 * s.d * s.vocab
+    return kind_of(s).head_flops(s)
 
 
 def causal_attention_flops(s: Shapes, t: int) -> float:
-    """Scores and values of a causal prefill of ``t`` tokens, every layer:
-    query ``i`` reads keys ``0..i``."""
-    return 4.0 * s.n_layers * s.heads * s.d_head * t * (t + 1) / 2
+    """Scores and values of a causal prefill of ``t`` tokens, every layer."""
+    return kind_of(s).causal_attention_flops(s, t)
 
 
 def decode_attention_flops(s: Shapes, keys: int) -> float:
     """Scores and values of one query over ``keys`` cached keys, every layer."""
-    return 4.0 * s.n_layers * s.heads * s.d_head * keys
+    return kind_of(s).decode_attention_flops(s, keys)
 
 
 def prefill_flops(s: Shapes, batch: int, t: int) -> float:
@@ -82,11 +84,6 @@ def flash_call(b: int, tq: int, tkv: int, h: int, hk: int, dh: int,
 
 
 def moe_call(s: Shapes, tokens: int, experts_used: int) -> tuple[float, float]:
-    """(FLOPs, bytes) of one MoE layer over ``tokens`` tokens: the router,
-    and each token's top-k experts' three products; the router and each
-    expert the routing chose read once, the input read and the output
-    written once."""
-    flops = 2.0 * tokens * (s.d * s.experts + s.top_k * 3 * s.d * s.d_ff)
-    nbytes = BF16_BYTES * (s.d * s.experts + experts_used * 3 * s.d * s.d_ff
-                           + 2 * tokens * s.d)
-    return flops, nbytes
+    """(FLOPs, bytes) of one MoE layer over ``tokens`` tokens, whose
+    routing chose ``experts_used`` experts."""
+    return kind_of(s).moe_call(s, tokens, experts_used)

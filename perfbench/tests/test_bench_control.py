@@ -9,7 +9,8 @@ import pytest
 import calibrate
 from pbench import spec
 
-CELLS = ("deepseek-7b.prefill-long", "qwen3-moe-30b-a3b.decode-batch")
+#: every cell of BENCHMARK.json
+CELLS = tuple(w["name"] for w in spec.load_benchmark()["workloads"])
 
 
 @pytest.mark.card

@@ -15,14 +15,20 @@ import torch
 
 from pbench import spec
 from pbench.cellrun import run_cell
+from pbench.model import program_config
+from pbench.runner import patched
 from small import small_config, small_mix
 
-CELLS = ("deepseek-7b.prefill-long", "qwen3-moe-30b-a3b.decode-batch")
+#: every cell of BENCHMARK.json
+CELLS = tuple(w["name"] for w in spec.load_benchmark()["workloads"])
 
 
 @contextlib.contextmanager
-def fault(kind):
-    from repro_torch.models import layers, transformer
+def fault(kind, model_cls):
+    """The fault ``kind`` planted under ``generate``: in the port's cache
+    write, or in the decode step of ``model_cls``, the class the program
+    builds for the cell."""
+    from repro_torch.models import layers
 
     if kind == "sound":
         yield
@@ -35,10 +41,10 @@ def fault(kind):
         finally:
             layers._write_slot = original
         return
-    step = transformer.TransformerLM.decode_step
+    step = model_cls.decode_step
 
-    def broken(self, params, cache, tokens, pos, rope_pos=None):
-        logits, cache = step(self, params, cache, tokens, pos, rope_pos)
+    def broken(*args, **kwargs):
+        logits, cache = step(*args, **kwargs)
         logits = logits.clone()
         if kind == "half_batch":
             half = logits.shape[0] // 2
@@ -48,23 +54,29 @@ def fault(kind):
             row[(int(row.argmax()) + 1) % row.numel()] = row.max() + 1.0
         return logits, cache
 
-    transformer.TransformerLM.decode_step = broken
-    try:
+    with patched(model_cls, "decode_step", lambda fn: broken):
         yield
-    finally:
-        transformer.TransformerLM.decode_step = step
 
 
 @pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("kind", ["sound", "state_unchanged", "half_batch", "token_altered"])
 def test_a_fault_fails_the_comparison(name, kind):
-    cell = spec.cell(name)
+    r = run_with_fault(spec.cell(name), kind, spec.ROOT)
+    assert r["correct"] == (kind == "sound"), r["checks"]
+
+
+def run_with_fault(cell, kind: str, root) -> dict:
+    """A run of ``cell`` (of the checkout ``root``) at a small size on the
+    CPU with the fault ``kind`` planted; its checks are the cell's."""
+    from repro_torch.models.model import build_model
+
     assert cell.limits and all(lim["limit"] > 0 for lim in cell.limits.values())
     lengths = (8, 12) if len(cell.mix["prompt_lengths"]) > 1 else (20,)
     mix = small_mix(cell.mix, lengths=lengths, batch=4, new_tokens=6)
-    with fault(kind):
+    conf = small_config(cell.config, root)
+    with fault(kind, type(build_model(program_config(conf, root)))):
         torch.manual_seed(0)
         r = run_cell(cell, 2**31 + 17, 0.0, False, "cpu", time.perf_counter(),
-                     conf=small_config(cell.config), mix_spec=mix)
-    assert set(r["checks"]) == set(cell.limits)
-    assert r["correct"] == (kind == "sound"), r["checks"]
+                     conf=conf, mix_spec=mix, root=root)
+    assert set(r["checks"]) == set(cell.limits), r["checks"]
+    return r

@@ -48,7 +48,7 @@ print(json.dumps([forbidden_modules(), sorted({{m.split(".")[0] for m in sys.mod
 def test_a_run_loads_no_jax_module():
     code = RUN.format(bench=str(spec.BENCH_DIR), src=str(spec.ROOT / "src"),
                       tests=str(spec.BENCH_DIR / "tests"),
-                      cells=["deepseek-7b.prefill-long", "qwen3-moe-30b-a3b.decode-batch"])
+                      cells=[w["name"] for w in spec.load_benchmark()["workloads"]])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=600, cwd=spec.ROOT)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -8,10 +8,10 @@ import torch
 
 from pbench import spec, weights
 from pbench.model import program_config
-from pbench.shapes import shapes
 from small import small_config
 
-CELLS = ("deepseek-7b.prefill-long", "qwen3-moe-30b-a3b.decode-batch")
+#: every cell of BENCHMARK.json
+CELLS = tuple(w["name"] for w in spec.load_benchmark()["workloads"])
 
 
 def program_logits(conf, params, prompts, served):
@@ -35,8 +35,8 @@ def program_logits(conf, params, prompts, served):
 @pytest.mark.parametrize("batch,length", [(3, 20), (2, 7)])
 def test_reference_matches_the_ports_plain_path(name, batch, length):
     cell = spec.cell(name)
-    conf = small_config(cell.config, dtype="float32", group=16)
-    s = shapes(conf)
+    conf = small_config(cell.config, dtype="float32")
+    s = spec.reference(conf).shapes(conf)
     params = weights.make_params(s, 5, "cpu", dtype=torch.float32)
     gen = torch.Generator().manual_seed(1)
     prompts = torch.randint(0, s.vocab, (batch, length), generator=gen)
@@ -51,9 +51,9 @@ def test_capacity_drops_tokens_in_the_small_moe():
     """The MoE case above is only a test of capacity if some token of it
     overflows an expert: count the drops the reference makes."""
     cell = spec.cell("qwen3-moe-30b-a3b.decode-batch")
-    conf = small_config(cell.config, dtype="float32", group=16)
+    conf = small_config(cell.config, dtype="float32")
     ref = spec.reference(conf)
-    s = shapes(conf)
+    s = ref.shapes(conf)
     calls = ref.call_groups(3, 20, 24, s.group_size)
     assert [len(g) for g in calls] == [4] + [1] * 4       # 60 prompt tokens in 16s
     assert ref.capacity(s, 16) == 4

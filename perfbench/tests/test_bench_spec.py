@@ -6,23 +6,32 @@ import shutil
 
 from pbench import spec
 
-CELLS = ("deepseek-7b.prefill-long", "qwen3-moe-30b-a3b.decode-batch")
+#: what every kind module provides (``moe_call`` too where its sizes have experts)
+KIND = ("shapes", "param_layout", "program_fields", "linear_flops_per_token", "head_flops",
+        "causal_attention_flops", "decode_attention_flops", "small_config", "served_logits")
 
 
 def test_every_cell_resolves_its_files_and_readers():
+    """Every cell of BENCHMARK.json resolves its files, its readers and its kind."""
     bench = spec.load_benchmark()
-    assert [w["name"] for w in bench["workloads"]] == list(CELLS)
-    for name in CELLS:
-        cell = spec.cell(name)
-        assert cell.chips == 1 and cell.config["reference"] == "transformer"
+    assert bench["workloads"]
+    for w in bench["workloads"]:
+        cell = spec.cell(w["name"])
+        assert cell.chips in (1, 4) and cell.limits
         assert {m["name"] for m in cell.end_to_end} >= {"setup_s", "gen_tokens_per_s"}
         for m in cell.end_to_end + cell.per_layer:
             assert callable(spec.metric_reader(m["name"]))
-        assert hasattr(spec.reference(cell.config), "served_logits")
+        kind = spec.reference(cell.config)
+        assert all(callable(getattr(kind, f)) for f in KIND), w["name"]
+        s = kind.shapes(cell.config)
+        assert spec.kind_of(s) is kind and s.vocab > 0
+        if getattr(s, "experts", 0):
+            assert s.top_k > 0 and callable(kind.moe_call)
 
 
 def test_a_metric_with_workloads_is_reported_only_there():
-    dense, moe = (spec.cell(n) for n in CELLS)
+    dense, moe = (spec.cell(n) for n in ("deepseek-7b.prefill-long",
+                                         "qwen3-moe-30b-a3b.decode-batch"))
     assert "tpot_p95_ms" not in {m["name"] for m in dense.end_to_end}
     assert "tpot_p95_ms" in {m["name"] for m in moe.end_to_end}
     assert "moe_roofline" in {m["name"] for m in moe.per_layer}

@@ -4,12 +4,12 @@ import pytest
 
 from pbench import spec
 from pbench import yardstick as Y
-from pbench.shapes import shapes
 from pbench.weights import n_params
 
 
 def cfg(name):
-    return shapes(spec.cell(name).config)
+    conf = spec.cell(name).config
+    return spec.reference(conf).shapes(conf)
 
 
 DS = "deepseek-7b.prefill-long"
