@@ -143,6 +143,14 @@ PR 21's mma.sync kernels at the same points, against the bf16 tensor
 cores' 989 TFLOP/s; rmsnorm on bf16 at the bf16 phase's rows, d 4096
 and 2048). It prints the total and the build seconds, one ``kernels``
 JSON line and, last, ``{"ok": true, "device": {...}}``.
+The ``mla`` phase holds the bf16 wgmma flash kernel at q and k head dim
+192 over v head dim 128 (latent attention's expanded prefill,
+``SPLIT_HEAD_DIMS``) against its plain version: every instantiation at
+every ring depth that fits, ragged, offset and non-causal, at
+DeepSeek-V2's YaRN scale, every point of its Hopper tuning space at the
+timed shape cut to 2k, and a control (p rounded to fp8) the limit
+refuses; then times it at B 4, T 16384, 16 heads at every point of the
+space beside its bound, its plain version and SDPA.
 A profiler trace of one prefill and a few decode steps at full width
 says where the serving time goes (device busy share, kernels by device
 time), and one of 3 training steps where the training time goes, the
@@ -153,7 +161,7 @@ non-zero and prints no result. Full results go to
 ``chiprun_out/chip_smoke.json``. ``--only build,check`` (any of
 ``build``, ``table3``, ``serve``, ``warm`` (after ``serve``), ``profile``,
 ``front``, ``families``, ``recurrent``, ``bf16``, ``check``, ``logits``, ``train``,
-``dist``, ``time``) runs a subset and
+``dist``, ``time``, ``mla``) runs a subset and
 prints no verdict: a quick look at a new
 kernel (``--only build,check,time`` times the kernels at DEFAULT_POINT
 where Table 3 has not run).
@@ -166,6 +174,7 @@ import dataclasses
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -205,7 +214,7 @@ SERVE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel"
 SERVE_EXAMPLE_ARGS = ["--arch", "deepseek-7b", "--autotune", "--kernel-tuning", "kernel",
                       "--requests", "2"]
 PHASES = ("build", "table3", "serve", "warm", "profile", "front", "families", "recurrent",
-          "bf16", "check", "logits", "train", "dist", "time")
+          "bf16", "check", "logits", "train", "dist", "time", "mla")
 #: the families phase: each model at full width, its depth cut to what
 #: the card holds (None: all of it), served under the serve CLI's
 #: session with --kernel-tuning kernel (see run_family):
@@ -2161,7 +2170,7 @@ def check_attention(lib, dev, gen) -> dict:
     return out
 
 
-def unblocked_attention(q, k, v, p_dtype):
+def unblocked_attention(q, k, v, p_dtype, scale=None):
     """Causal attention in one block, scores and sums in fp32, p rounded to
     ``p_dtype`` before p·v: bf16 gives a right bf16 result by another route
     than the plain version's blocks; fp8 a wrong one, for the control."""
@@ -2170,13 +2179,135 @@ def unblocked_attention(q, k, v, p_dtype):
     B, T, H, Dh = q.shape
     Hk = k.shape[2]
     s = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(B, T, Hk, H // Hk, Dh),
-                     k.float()) * Dh ** -0.5
+                     k.float()) * (Dh ** -0.5 if scale is None else scale)
     pos = torch.arange(T, device=q.device)
     s = s.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), v.float())
     o = o / p.sum(dim=-1)[..., None]
-    return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, Dh).to(q.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, T, H, v.shape[-1]).to(q.dtype)
+
+
+#: latent attention's expanded prefill as DeepSeek-V2-Lite serves it: q
+#: and k (nope 128 | rope 64), v 128, 16 heads each with its own keys,
+#: the scores at 192 ** -0.5 times YaRN's mscale (0.1 * 0.707 * ln 40 + 1)
+#: squared; timed at B 4 and T 16384, the long-context cell's shorter prompt
+MLA_DIMS = (192, 128)
+MLA_SCALE = 192 ** -0.5 * (0.1 * 0.707 * math.log(40) + 1) ** 2
+MLA_TIMED = (4, 16384, 16)
+
+
+def run_mla(lib, dev, gen) -> dict:
+    """The (192, 128) instantiations against the plain version, then
+    their times (see the module docstring)."""
+    import torch
+
+    from repro_torch.kernels.attention.attention import (
+        BLOCK_KV, BLOCK_Q, flash_attention_cuda, flash_attention_plain, path, smem_bytes)
+    from repro_torch.kernels.attention.ops import make_space
+
+    Dh, Dv = MLA_DIMS
+    cap = lib_capacity_kb(dev) * 1024
+
+    def qkv(B, Tq, Tkv, H):
+        return (torch.randn(B, Tq, H, Dh, generator=gen, device=dev).to(torch.bfloat16),
+                torch.randn(B, Tkv, H, Dh, generator=gen, device=dev).to(torch.bfloat16),
+                torch.randn(B, Tkv, H, Dv, generator=gen, device=dev).to(torch.bfloat16))
+
+    def space_points(T):
+        space = make_space(T, T, Dh, vmem_kb=lib_capacity_kb(dev), hopper=True,
+                           dtype_bytes=2, Dv=Dv)
+        return sorted({(p["block_q"], p["block_kv"], p["lookahead"])
+                       for p in space.iter_valid()})
+
+    cases, inputs = [], {}
+
+    def case(label, shape, point, **kw):
+        if shape not in inputs:
+            inputs[shape] = qkv(*shape)
+        q, k, v = inputs[shape]
+        if path(q, k, v) != "wgmma":
+            fail(f"mla attention at {shape} would take the {path(q, k, v)} path")
+        cases.append((f"{point} {kw} at {shape} {label}",
+                      lambda: flash_attention_cuda(q, k, v, point, lib=lib, scale=MLA_SCALE,
+                                                   **kw),
+                      lambda: flash_attention_plain(q, k, v, point, scale=MLA_SCALE, **kw)))
+
+    depths = {}
+    for bq in BLOCK_Q:
+        for bkv in BLOCK_KV:
+            fits = [la for la in (0, 1, 2)
+                    if smem_bytes({"block_kv": bkv, "lookahead": la}, Dh, 2, Dv=Dv) <= cap]
+            depths[f"{bq}/{bkv}"] = fits
+            for i, la in enumerate(fits):
+                point = {"block_q": bq, "block_kv": bkv, "lookahead": la}
+                case("ragged", (2, 700, 700, 4), point)
+                if i == 0:
+                    case("offset", (1, 300, 1000, 4), point, q_offset=700)
+                    case("non-causal", (1, 200, 333, 4), point, causal=False)
+    timed_points = space_points(MLA_TIMED[1])
+    for bq, bkv, la in space_points(2048):
+        case("space", (1, 2048, 2048, 16), {"block_q": bq, "block_kv": bkv, "lookahead": la})
+    before = flash_attention_cuda.launches_by_path.get("wgmma", 0)
+    out = check_cases("mla attention (192, 128)", cases, ATTENTION_BF16_TOL)
+    launched = flash_attention_cuda.launches_by_path.get("wgmma", 0) - before
+    if launched != len(cases):
+        fail(f"mla attention checks launched {launched} wgmma kernels for {len(cases)} cases")
+    out["ring_depths"] = depths
+    q, k, v = inputs[(1, 2048, 2048, 16)]
+    want = flash_attention_plain(q, k, v, {"block_q": 128, "block_kv": 128},
+                                 scale=MLA_SCALE).float()
+    for name, p_dtype, refused in (("fp8_control", torch.float8_e4m3fn, True),
+                                   ("unblocked", torch.bfloat16, False)):
+        used = tol_used(unblocked_attention(q, k, v, p_dtype, MLA_SCALE).float(), want,
+                        ATTENTION_BF16_TOL)
+        out[f"{name}_tol_used"] = used
+        if (used <= 1.0) == refused:
+            fail(f"mla attention control {name} uses {used:.3f} of the limit")
+    print(f"mla attention control: p in fp8 uses {out['fp8_control_tol_used']:.2f} of the "
+          f"limit (refused), p in bf16 {out['unblocked_tol_used']:.3f} (admitted)")
+    del inputs, cases
+    torch.cuda.empty_cache()
+
+    # times at B 4, T 16384, 16 heads, causal
+    B, T, H = MLA_TIMED
+    q, k, v = qkv(B, T, T, H)
+    flops = 2.0 * B * H * (Dh + Dv) * T * (T + 1) / 2
+    nbytes = 2.0 * B * T * H * 2 * (Dh + Dv)
+    t = {"shape": [B, T, H, Dh, Dv], "bound_ms": bound(flops, nbytes, bf16=True)[0],
+         "flops": flops, "bytes": nbytes, "points": {}}
+    for bq, bkv, la in timed_points:
+        point = {"block_q": bq, "block_kv": bkv, "lookahead": la}
+        t["points"][f"{bq}/{bkv}/{la}"] = time_ms(
+            lambda: flash_attention_cuda(q, k, v, point, lib=lib, scale=MLA_SCALE), reps=5)
+    best = min(t["points"], key=t["points"].get)
+    t["best_point"], t["kernel_ms"] = best, t["points"][best]
+    t["roofline_pct"] = 100.0 * t["bound_ms"] / t["kernel_ms"]
+    t["plain_ms"] = time_ms(lambda: flash_attention_plain(
+        q, k, v, {"block_q": 512, "block_kv": 512}, scale=MLA_SCALE), reps=1, warmup=1)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fast = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+            SDPBackend.CUDNN_ATTENTION]
+
+    def sdpa(vv):
+        with sdpa_kernel(fast):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vv, is_causal=True, scale=MLA_SCALE)
+    try:
+        t["sdpa_ms"] = time_ms(lambda: sdpa(vt), reps=5)
+        t["sdpa_v"] = "v at 128"
+    except RuntimeError as e:
+        vp = torch.nn.functional.pad(vt, (0, Dh - Dv))
+        t["sdpa_ms"] = time_ms(lambda: sdpa(vp), reps=5)
+        t["sdpa_v"] = f"v padded to 192 (at 128: {str(e)[:120]})"
+    out["times"] = t
+    print(f"mla attention at B {B}, T {T}, {H} heads, (192, 128): kernel {t['kernel_ms']:.3f} "
+          f"ms at {best} ({t['roofline_pct']:.1f} % of the bound {t['bound_ms']:.3f} ms); "
+          f"plain {t['plain_ms']:.1f} ms; SDPA {t['sdpa_ms']:.3f} ms ({t['sdpa_v']}); "
+          f"every point {t['points']}")
+    return out
 
 
 def check_rmsnorm(lib, dev, gen) -> dict:
@@ -3586,6 +3717,11 @@ def main(argv=None) -> int:
     dist_report = None
     if "dist" in only:
         dist_report = report["dist"] = run_dist(dev, dist_procs, train_report)
+        torch.cuda.empty_cache()
+        save()
+
+    if "mla" in only:
+        report["mla"] = run_mla(libs["attention"], dev, gen)
         torch.cuda.empty_cache()
         save()
 

@@ -64,6 +64,19 @@ class ModelConfig:
     max_decode_len: int = 32768
     microbatches: int = 0          # grad-accumulation steps (0 = auto)
 
+    # --- latent attention (MLA), leading dense layers, routing without
+    # renormalisation, YaRN: fields of :class:`MLAConfig` alone (the
+    # reference's configs have none of them); every other config reads
+    # these class-level values, which leave its paths as they are
+    kv_lora_rank = 0               # 0: multi-head attention, no latent cache
+    qk_nope_head_dim = 0
+    qk_rope_head_dim = 0
+    v_head_dim = 0
+    first_k_dense = 0              # leading layers with a dense FFN
+    dense_d_ff = 0                 # their width
+    norm_topk_prob = True          # renormalise the router's top-k gates
+    rope_scaling = None            # YarnScaling, or None
+
     # ------------------------------------------------------------- derived
     @property
     def d_qkv(self) -> int:
@@ -151,6 +164,65 @@ class ModelConfig:
         )
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """YaRN's RoPE scaling, as DeepSeek-V2's ``rope_scaling`` (type
+    ``"yarn"``) gives it: the frequencies past the correction range
+    divided by ``factor``, a linear ramp between (see
+    :func:`repro_torch.models.layers.rope_freqs`), and the attention's
+    softmax scale times ``yarn_mscale(factor, mscale_all_dim)`` squared."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A DeepSeek-V2 decoder: latent attention (MLA) in every layer, the
+    first ``first_k_dense`` layers a dense SwiGLU of ``dense_d_ff``, the
+    rest routed experts of ``d_ff`` beside ``n_shared_experts`` shared
+    ones. ``d_head`` is a query's and a key's head dim (``qk_nope_head_dim
+    + qk_rope_head_dim``); a value's is ``v_head_dim``. The port's own: the
+    reference has no such architecture."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    norm_topk_prob: bool = True
+    rope_scaling: YarnScaling | None = None
+
+    def n_params(self) -> int:
+        d, H, L, V = self.d_model, self.n_heads, self.n_layers, self.vocab
+        R, rope = self.kv_lora_rank, self.qk_rope_head_dim
+        attn = (d * H * self.d_head + d * (R + rope) + R
+                + R * H * (self.qk_nope_head_dim + self.v_head_dim) + H * self.v_head_dim * d)
+        swiglu = 3 * d
+        experts = (self.n_experts + self.n_shared_experts) * swiglu * self.d_ff \
+            + d * self.n_experts
+        k = self.first_k_dense
+        return (2 * V * d + d + L * (attn + 2 * d) + k * swiglu * self.dense_d_ff
+                + (L - k) * experts)
+
+    def n_active_params(self) -> int:
+        inactive = self.n_experts - self.top_k
+        return self.n_params() - (self.n_layers - self.first_k_dense) * inactive \
+            * 3 * self.d_model * self.d_ff
+
+    def reduced(self, **overrides: Any) -> "MLAConfig":
+        small = dict(kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8,
+                     v_head_dim=16, d_head=24, dense_d_ff=96,
+                     first_k_dense=min(self.first_k_dense, 1))
+        small.update(overrides)
+        return super().reduced(**small)
 
 
 @dataclasses.dataclass(frozen=True)

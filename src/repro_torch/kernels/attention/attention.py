@@ -11,7 +11,10 @@ with the same tuning point:
               computed (a ring of lookahead + 1 shared-memory stages)
 
 Layout: q (B, Tq, H, Dh), k/v (B, Tkv, Hk, Dh) with H = G·Hk, read in
-place (no transposed copies); the kv head of q head h is h // G.
+place (no transposed copies); the kv head of q head h is h // G. Latent
+attention's expanded prefill gives v a head dim of its own: q and k at
+192, v and the output at 128 (``SPLIT_HEAD_DIMS``, on the ``wgmma`` path
+only).
 
 The kernels are CUDA C++ (``csrc/attention.cuh``; its header comment is
 the design note). Three paths, chosen by :func:`path` from the tensors
@@ -34,9 +37,10 @@ bf16, as the reference's kernel does. The input type, head dim,
 ``block_q`` and ``block_kv`` are template parameters, one instantiation
 per combination (Dh 16, 64 and 128, the head dims of the reduced
 configs, of the 64-wide families and of deepseek-7b: 45 a type and
-path), all built once into one shared library; the launcher picks by
-q's type and last dim and raises at a type or Dh it has no
-instantiation for. A block clamped to the sequence, as
+path; and 15 at q and k 192 over v 128 on ``wgmma``), all built once
+into one shared library; the launcher picks by q's type and q's and v's
+last dims and raises at a type or a head dim it has no instantiation
+for. A block clamped to the sequence, as
 ``flash_attention_pallas`` clamps ``min(block, T)``, is served by the
 smallest instantiated block that covers the sequence: one tile either
 way. A block below the smallest instantiation (``block_q`` 64 or 32 of
@@ -84,6 +88,9 @@ BLOCK_Q = (128, 256, 512)
 BLOCK_KV = (64, 128, 256, 512, 1024)
 #: the head dims the library is instantiated for
 HEAD_DIMS = (16, 64, 128)
+#: (q and k head dim, v head dim) pairs that differ, instantiated on the
+#: bf16 ``wgmma`` path only (symbols ``attention_dh<Dh>_dv<Dv>_...``)
+SPLIT_HEAD_DIMS = ((192, 128),)
 #: input type -> symbol suffix (fp32's symbols carry none)
 _TYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 #: bf16 path -> symbol suffix after ``_bf16``
@@ -113,16 +120,19 @@ def kv_tile(point: Point) -> int:
 
 
 def smem_bytes(point: Point, Dh: int, dtype_bytes: int = 4,
-               path: str | None = None) -> int:
-    """Shared memory of one block at ``point``, head dim ``Dh`` and inputs
-    of ``dtype_bytes``, on ``path`` (bf16 defaults to ``wgmma``, the one
-    the main path takes). ``wgmma`` (``attention::wg::smem_bytes``): the
-    128-row q tile, ``lookahead + 1`` stages of a K and a V tile, 128
-    bytes of barriers and 1024 to align them. ``tf32x3`` and ``mma``:
-    ``lookahead + 1`` 32-key stages, and for fp32 the split slice."""
+               path: str | None = None, Dv: int | None = None) -> int:
+    """Shared memory of one block at ``point``, head dim ``Dh`` (``Dv`` of
+    v, ``Dh`` by default) and inputs of ``dtype_bytes``, on ``path`` (bf16
+    defaults to ``wgmma``, the one the main path takes). ``wgmma``
+    (``attention::wg::smem_bytes``): the 128-row q tile, ``lookahead + 1``
+    stages of a K and a V tile, 128 bytes of barriers and 1024 to align
+    them (at (192, 128) a stage of 128-key tiles is 80 kB: two stages fit,
+    three do not). ``tf32x3`` and ``mma``: ``lookahead + 1`` 32-key
+    stages, and for fp32 the split slice."""
     la = int(point.get("lookahead", 1))
     if dtype_bytes == 2 and (path or "wgmma") == "wgmma":
-        return 1024 + 128 + 2 * 128 * Dh + (la + 1) * 2 * 2 * kv_tile(point) * Dh
+        dv = Dh if Dv is None else Dv
+        return 1024 + 128 + 2 * 128 * Dh + (la + 1) * 2 * kv_tile(point) * (Dh + dv)
     stages = (la + 1) * stage_bytes(Dh, dtype_bytes)
     return stages if dtype_bytes == 2 else stages + split_bytes(Dh)
 
@@ -169,11 +179,19 @@ def path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def symbol(point: Point, Tq: int, Tkv: int, Dh: int,
-           dtype: torch.dtype = torch.float32, path: str = "wgmma") -> str:
+           dtype: torch.dtype = torch.float32, path: str = "wgmma",
+           Dv: int | None = None) -> str:
     """Exported C name of the instantiation serving ``point`` at these
-    sequence lengths, head dim and input type (for bf16, on ``path``:
-    ``wgmma`` or ``mma``)."""
-    if Dh not in HEAD_DIMS:
+    sequence lengths, head dim (``Dv`` of v where it differs) and input
+    type (for bf16, on ``path``: ``wgmma`` or ``mma``)."""
+    split = Dv is not None and Dv != Dh
+    if split and ((Dh, Dv) not in SPLIT_HEAD_DIMS or dtype != torch.bfloat16
+                  or path != "wgmma"):
+        raise KeyError(
+            f"no attention instantiation for head dims ({Dh}, {Dv}) in {dtype} on "
+            f"{path}: differing head dims are instantiated as {SPLIT_HEAD_DIMS}, "
+            f"bf16 on wgmma only")
+    if not split and Dh not in HEAD_DIMS:
         raise KeyError(
             f"no attention instantiation for head dim {Dh}: instantiated head "
             f"dims are {HEAD_DIMS}")
@@ -183,17 +201,22 @@ def symbol(point: Point, Tq: int, Tkv: int, Dh: int,
     bq = _block(point["block_q"], Tq, BLOCK_Q)
     bkv = _block(point["block_kv"], Tkv, BLOCK_KV)
     sfx = _TYPES[dtype] + (_BF16_PATHS[path] if dtype == torch.bfloat16 else "")
-    return f"attention_dh{Dh}_bq{bq}_bkv{bkv}{sfx}"
+    dims = f"dh{Dh}_dv{Dv}" if split else f"dh{Dh}"
+    return f"attention_{dims}_bq{bq}_bkv{bkv}{sfx}"
 
 
 def instantiations() -> dict[str, str]:
     """Symbol -> instantiation line of every (type and path, Dh, block_q,
-    block_kv)."""
+    block_kv), and of every split pair's (bf16 on wgmma)."""
     lines = {"": "ATTENTION_INSTANTIATE", "_bf16": "ATTENTION_INSTANTIATE_BF16",
              "_bf16_mma": "ATTENTION_INSTANTIATE_BF16_MMA"}
-    return {f"attention_dh{dh}_bq{bq}_bkv{bkv}{sfx}": f"{macro}({dh}, {bq}, {bkv})"
-            for sfx, macro in lines.items()
-            for dh in HEAD_DIMS for bq in BLOCK_Q for bkv in BLOCK_KV}
+    out = {f"attention_dh{dh}_bq{bq}_bkv{bkv}{sfx}": f"{macro}({dh}, {bq}, {bkv})"
+           for sfx, macro in lines.items()
+           for dh in HEAD_DIMS for bq in BLOCK_Q for bkv in BLOCK_KV}
+    out.update({f"attention_dh{dh}_dv{dv}_bq{bq}_bkv{bkv}_bf16":
+                f"ATTENTION_INSTANTIATE_BF16_DV({dh}, {dv}, {bq}, {bkv})"
+                for dh, dv in SPLIT_HEAD_DIMS for bq in BLOCK_Q for bkv in BLOCK_KV})
+    return out
 
 
 def build_kernels(device: "torch.device | str | None" = None) -> KernelLibrary:
@@ -217,8 +240,9 @@ def flash_attention_cuda(
     causal: bool = True, scale: float | None = None, q_offset: int = 0,
     lib: KernelLibrary | None = None,
 ) -> torch.Tensor:
-    """Blockwise causal attention: q (B, Tq, H, Dh), k/v (B, Tkv, Hk, Dh)
-    -> (B, Tq, H, Dh) in q's type (fp32 or bf16, all three of one type).
+    """Blockwise causal attention: q (B, Tq, H, Dh), k (B, Tkv, Hk, Dh),
+    v (B, Tkv, Hk, Dv) -> (B, Tq, H, Dv) in q's type (fp32 or bf16, all
+    three of one type); Dv is Dh but for the pairs of ``SPLIT_HEAD_DIMS``.
 
     On CUDA tensors: checks the arguments, launches the instantiation for
     ``point``, q's type, head dim and :func:`path` on the current stream,
@@ -236,16 +260,19 @@ def flash_attention_cuda(
         raise TypeError(
             f"flash_attention_cuda takes float32 or bfloat16 q, k and v of one "
             f"type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(
-            f"expected q (B, Tq, H, Dh), k and v (B, Tkv, Hk, Dh), got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+            f"expected q (B, Tq, H, Dh), k (B, Tkv, Hk, Dh) and v (B, Tkv, Hk, Dv), "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, Tq, H, Dh = q.shape
     _, Tkv, Hk, _ = k.shape
-    if k.shape[0] != B or k.shape[3] != Dh or Dh not in HEAD_DIMS or H % Hk:
+    Dv = v.shape[3]
+    dims_ok = Dh in HEAD_DIMS if Dv == Dh else (Dh, Dv) in SPLIT_HEAD_DIMS
+    if k.shape[0] != B or k.shape[3] != Dh or not dims_ok or H % Hk:
         raise ValueError(
-            f"unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}: the "
-            f"kernel takes Dh in {HEAD_DIMS} and H a multiple of Hk")
+            f"unsupported shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}: the kernel takes Dh in {HEAD_DIMS} (v's the same) "
+            f"or (Dh, Dv) in {SPLIT_HEAD_DIMS}, and H a multiple of Hk")
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError("flash_attention_cuda takes contiguous tensors")
     if min(B, Tq, Tkv) < 1 or max(q.numel(), k.numel()) >= 2**62 \
@@ -258,10 +285,10 @@ def flash_attention_cuda(
     if lib is None:
         lib = build_kernels(q.device)
     scale = float(scale if scale is not None else Dh ** -0.5)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Tq, H, Dv))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     route = path(q, k, v)
-    lib.launch(symbol(point, Tq, Tkv, Dh, q.dtype, route), q.data_ptr(), k.data_ptr(),
+    lib.launch(symbol(point, Tq, Tkv, Dh, q.dtype, route, Dv), q.data_ptr(), k.data_ptr(),
                v.data_ptr(), out.data_ptr(), B, Tq, Tkv, H, Hk, int(bool(causal)),
                int(q_offset), scale, lookahead, stream)
     flash_attention_cuda.launches += 1
@@ -296,7 +323,8 @@ def flash_attention_plain(
 
 class FlashAttentionFunction(torch.autograd.Function):
     """``flash_attention_cuda`` at ``point`` under autograd, causal unless
-    told otherwise (the layers' call: no offset, the default scale).
+    told otherwise (the layers' call: no offset, the default scale unless
+    one is given).
 
     Forward: the hand kernel on CUDA tensors (the plain version on the
     CPU). Backward: recomputes the attention through
@@ -307,11 +335,12 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, point: Point,
-                causal: bool = True):
+                causal: bool = True, scale: float | None = None):
         ctx.save_for_backward(q, k, v)
         ctx.point = dict(point)
         ctx.causal = causal
-        return flash_attention_cuda(q, k, v, point, causal=causal)
+        ctx.scale = scale
+        return flash_attention_cuda(q, k, v, point, causal=causal, scale=scale)
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
@@ -319,12 +348,14 @@ class FlashAttentionFunction(torch.autograd.Function):
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[:3])]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
-            out = flash_attention_plain(*inputs, ctx.point, causal=ctx.causal)
+            out = flash_attention_plain(*inputs, ctx.point, causal=ctx.causal,
+                                        scale=ctx.scale)
             grads = iter(torch.autograd.grad(out, wanted, g))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None, None)
 
 
 __all__ = ["BLOCK_KV", "BLOCK_Q", "FlashAttentionFunction", "HEAD_DIMS", "SMEM_BYTES",
-           "bf16_path", "build_kernels", "flash_attention_cuda", "flash_attention_plain",
+           "SPLIT_HEAD_DIMS", "bf16_path", "build_kernels", "flash_attention_cuda",
+           "flash_attention_plain",
            "instantiations", "kv_tile", "path", "smem_bytes", "split_bytes",
            "stage_bytes", "symbol"]

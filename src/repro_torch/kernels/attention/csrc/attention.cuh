@@ -10,7 +10,9 @@
 //   q: (B, Tq, H, Dh), k, v: (B, Tkv, Hk, Dh), out like q; fp32 or bf16
 //   (all four of one type); G = H / Hk;
 //   Dh a template parameter (a multiple of 8; the library instantiates
-//   16, 64 and 128, the head dims of the configs the port serves).
+//   16, 64 and 128, the head dims of the configs the port serves; the
+//   wgmma kernel also q and k at 192 over v at 128, latent attention's
+//   expanded prefill, where out is (B, Tq, H, 128)).
 //   The Pallas kernel's BlockSpecs take the whole Dh, so it runs at any
 //   Dh; here the launcher refuses a Dh it has no instantiation for.
 //
@@ -646,33 +648,41 @@ template <int DH>
 __host__ __device__ constexpr int box_d() { return DH < 64 ? DH : 64; }
 template <int DH>
 __host__ __device__ constexpr int span() { return 2 * box_d<DH>(); }
-// one ring stage: a K and a V tile
-template <int DH, int BKV>
-__host__ __device__ constexpr size_t stage_bytes() { return 2 * 2 * (size_t)kv_tile<BKV>() * DH; }
+// one ring stage: a K tile of head dim DH and a V tile of head dim DV
+template <int DH, int BKV, int DV = DH>
+__host__ __device__ constexpr size_t stage_bytes() { return 2 * (size_t)kv_tile<BKV>() * (DH + DV); }
 // the dynamic shared memory a block asks for: the q tile of a unit, the
 // ring, its barriers, and room to align everything to 1024 bytes
-template <int DH, int BKV>
+template <int DH, int BKV, int DV = DH>
 __host__ __device__ constexpr size_t smem_bytes(int lookahead) {
   return 1024 + kBarrierBytes + 2 * (size_t)kRows * DH +
-         (size_t)(lookahead + 1) * stage_bytes<DH, BKV>();
+         (size_t)(lookahead + 1) * stage_bytes<DH, BKV, DV>();
 }
 
-template <int DH, int BQ, int BKV>
+// DV, the value head dim, is DH but for latent attention's expanded
+// prefill (q and k [nope 128 | rope 64], v 128): a V tile then has fewer
+// boxes than a K tile, O and the output DV columns. Both take boxes of 64
+// values (one 128-byte swizzle span), so the tiles' layouts are alike.
+template <int DH, int BQ, int BKV, int DV = DH>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv, bf16_t* __restrict__ out, int B, int Tq,
             int Tkv, int H, int Hk, int causal, int q_offset, float scale, int stages) {
   constexpr int KT = kv_tile<BKV>(), BX = box_d<DH>(), SW = span<DH>(), NC = DH / BX;
+  constexpr int NCV = DV / BX;     // boxes of a V row
   constexpr int kQ = kRows * DH;   // elements of the q tile
-  constexpr int kKV = KT * DH;     // elements of a K (or V) tile
+  constexpr int kK = KT * DH;      // elements of a K tile
+  constexpr int kV = KT * DV;      // elements of a V tile
   constexpr int kUnits = BQ / kRows;
   static_assert(DH % 16 == 0 && DH % BX == 0, "the head dim is whole boxes of k16 steps");
+  static_assert(DV % 16 == 0 && DV % BX == 0 && box_d<DV>() == BX,
+                "the value head dim is whole boxes of the same width");
   static_assert(BQ % kRows == 0, "block_q is a whole number of 128-row units");
   extern __shared__ __align__(16) float smem[];
   bf16_t* const qs = reinterpret_cast<bf16_t*>(
       reinterpret_cast<char*>(smem) + ((1024 - (sm90::smem_addr(smem) & 1023)) & 1023));
-  bf16_t* const ring = qs + kQ;  // stage s: K at ring + 2 s kKV, V after it
-  uint64_t* const q_full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * 2 * kKV);
+  bf16_t* const ring = qs + kQ;  // stage s: K at ring + s (kK + kV), V after it
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(ring + (size_t)stages * (kK + kV));
   uint64_t* const q_empty = q_full + 1;
   uint64_t* const k_full = q_full + 2;
   uint64_t* const v_full = k_full + stages;
@@ -726,15 +736,15 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
           for (int kt = 0; kt < n; ++kt, ++it) {
             const int st = it % stages;
             sm90::mbar_wait(&empty[st], ((it / stages) & 1) ^ 1);
-            bf16_t* ks = ring + (size_t)st * 2 * kKV;
-            sm90::mbar_arrive_expect_tx(&k_full[st], 2 * kKV);
+            bf16_t* ks = ring + (size_t)st * (kK + kV);
+            sm90::mbar_arrive_expect_tx(&k_full[st], 2 * kK);
 #pragma unroll
             for (int c = 0; c < NC; ++c)
               sm90::tma_load_4d(ks + c * KT * BX, &tk, &k_full[st], c * BX, hk, kt * KT, b);
-            sm90::mbar_arrive_expect_tx(&v_full[st], 2 * kKV);
+            sm90::mbar_arrive_expect_tx(&v_full[st], 2 * kV);
 #pragma unroll
-            for (int c = 0; c < NC; ++c)
-              sm90::tma_load_4d(ks + kKV + c * KT * BX, &tv, &v_full[st], c * BX, hk, kt * KT,
+            for (int c = 0; c < NCV; ++c)
+              sm90::tma_load_4d(ks + kK + c * KT * BX, &tv, &v_full[st], c * BX, hk, kt * KT,
                                 b);
           }
         }
@@ -745,13 +755,13 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     const int cw = wg - 1;
     const int warp = t / 32, g = (t % 32) / 4, qd = t % 4;
     const bf16_t* const qw = qs + 64 * cw * BX;  // this warpgroup's rows of every q box
-    float sacc[KT / 2], o[DH / 2], m[2], l[2];
+    float sacc[KT / 2], o[DV / 2], m[2], l[2];
     uint32_t pa[KT / 16][4];  // P, rounded to bf16, in the register A operand's layout
 
     // S = Q K^T of the tile in stage st: 64 rows x KT keys, Q and K both
     // K-major in shared memory
     auto issue_s = [&](int st) {
-      const bf16_t* ks = ring + (size_t)st * 2 * kKV;
+      const bf16_t* ks = ring + (size_t)st * (kK + kV);
       sm90::wgmma_fence();
 #pragma unroll
       for (int s = 0; s < DH / 16; ++s) {
@@ -764,11 +774,11 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
     };
     // O += P V with P from registers, V MN-major (Dh contiguous) in shared memory
     auto issue_pv = [&](int st) {
-      const bf16_t* vs = ring + (size_t)st * 2 * kKV + kKV;
+      const bf16_t* vs = ring + (size_t)st * (kK + kV) + kK;
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < KT / 16; ++kk)
-        sm90::Wgmma<DH>::template rs<1>(
+        sm90::Wgmma<DV>::template rs<1>(
             o, pa[kk], sm90::smem_desc(vs + kk * 16 * BX, KT * SW, 8 * SW, SW), 1);
       sm90::wgmma_commit();
     };
@@ -818,7 +828,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         l[r] = l[r] * alpha[r] + sum[r];
       }
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) {
+      for (int i = 0; i < DV / 2; ++i) {
         sm90::fence_operand(o[i]);
         o[i] *= alpha[(i >> 1) & 1];
       }
@@ -839,7 +849,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         const int r0 = row_lo + 16 * warp + g;        // this thread's rows: r0, r0 + 8
         sm90::mbar_wait(q_full, qi++ & 1);
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+        for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
         m[0] = m[1] = kNegInf;
         l[0] = l[1] = 0.f;
         const int n = visible(q0);
@@ -859,16 +869,16 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
         }
         if (t == 0) sm90::mbar_arrive(q_empty);  // every S of the unit is done
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) sm90::fence_operand(o[i]);
+        for (int i = 0; i < DV / 2; ++i) sm90::fence_operand(o[i]);
 
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const int row = r0 + 8 * r;
           if (row >= Tq) continue;
           const float lr = fmaxf(l[r], 1e-30f);
-          bf16_t* dst = out + (((size_t)b * Tq + row) * H + h) * DH + 2 * qd;
+          bf16_t* dst = out + (((size_t)b * Tq + row) * H + h) * DV + 2 * qd;
 #pragma unroll
-          for (int j = 0; j < DH / 8; ++j)
+          for (int j = 0; j < DV / 8; ++j)
             *reinterpret_cast<uint32_t*>(dst + 8 * j) =
                 sm90::pack_bf16x2(o[4 * j + 2 * r] / lr, o[4 * j + 2 * r + 1] / lr);
         }
@@ -877,10 +887,10 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUte
 }
 
 // Host launcher: 4-d tensor maps (Dh, heads, positions, batch) of q, k and
-// v, boxes of one head's 16- or 64-value rows, swizzled over their span;
-// a persistent grid of at most the blocks resident on all SMs. The caller
-// guarantees what TMA needs: q, k and v 16-byte aligned.
-template <int DH, int BQ, int BKV>
+// v (v's of DV values), boxes of one head's 16- or 64-value rows, swizzled
+// over their span; a persistent grid of at most the blocks resident on all
+// SMs. The caller guarantees what TMA needs: q, k and v 16-byte aligned.
+template <int DH, int BQ, int BKV, int DV = DH>
 int launch(const bf16_t* q, const bf16_t* k, const bf16_t* v, bf16_t* out, int B, int Tq,
            int Tkv, int H, int Hk, int causal, int q_offset, float scale, int lookahead,
            void* stream) {
@@ -894,11 +904,13 @@ int launch(const bf16_t* q, const bf16_t* k, const bf16_t* v, bf16_t* out, int B
   const uint64_t kv_dims[4] = {(uint64_t)DH, (uint64_t)Hk, (uint64_t)Tkv, (uint64_t)B};
   const uint64_t kv_strides[3] = {2ull * DH, 2ull * Hk * DH, 2ull * Tkv * Hk * DH};
   const uint32_t kv_box[4] = {BX, 1, (uint32_t)kv_tile<BKV>(), 1};
+  const uint64_t v_dims[4] = {(uint64_t)DV, (uint64_t)Hk, (uint64_t)Tkv, (uint64_t)B};
+  const uint64_t v_strides[3] = {2ull * DV, 2ull * Hk * DV, 2ull * Tkv * Hk * DV};
   if (rc == 0) rc = sm90::make_tile_map(&tk, k, 4, kv_dims, kv_strides, kv_box, span<DH>());
-  if (rc == 0) rc = sm90::make_tile_map(&tv, v, 4, kv_dims, kv_strides, kv_box, span<DH>());
+  if (rc == 0) rc = sm90::make_tile_map(&tv, v, 4, v_dims, v_strides, kv_box, span<DH>());
   if (rc != 0) return rc;
-  const auto kernel = flash_wgmma<DH, BQ, BKV>;
-  const size_t smem = smem_bytes<DH, BKV>(lookahead);
+  const auto kernel = flash_wgmma<DH, BQ, BKV, DV>;
+  const size_t smem = smem_bytes<DH, BKV, DV>(lookahead);
   const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -925,11 +937,12 @@ int launch(const bf16_t* q, const bf16_t* k, const bf16_t* v, bf16_t* out, int B
 
 // Exported C symbols per instantiation and type (fp32 without a suffix;
 // bf16 q, k, v and out with `_bf16`, the wgmma kernel, or `_bf16_mma`, the
-// mma.sync kernel for tensors TMA cannot describe):
-//   int attention_dh<DH>_bq<BQ>_bkv<BKV>[_bf16|_bf16_mma](q, k, v, out, B,
-//                                 Tq, Tkv, H, Hk, causal, q_offset, scale,
-//                                 lookahead, stream)
-//   long long attention_dh<DH>_bq<BQ>_bkv<BKV>[_bf16|_bf16_mma]_smem(lookahead):
+// mma.sync kernel for tensors TMA cannot describe; `_dv<DV>` where v's head
+// dim differs from q's and k's, on the wgmma kernel only):
+//   int attention_dh<DH>[_dv<DV>]_bq<BQ>_bkv<BKV>[_bf16|_bf16_mma](q, k, v,
+//                                 out, B, Tq, Tkv, H, Hk, causal, q_offset,
+//                                 scale, lookahead, stream)
+//   long long attention_dh<DH>[_dv<DV>]_bq<BQ>_bkv<BKV>[_bf16|_bf16_mma]_smem(lookahead):
 //     the dynamic shared memory of one block, as the launcher asks for it
 #define ATTENTION_INSTANTIATE_T(DH, BQ, BKV, T, SFX)                                    \
   extern "C" int attention_dh##DH##_bq##BQ##_bkv##BKV##SFX(                             \
@@ -954,4 +967,17 @@ int launch(const bf16_t* q, const bf16_t* k, const bf16_t* v, bf16_t* out, int B
   }                                                                                      \
   extern "C" long long attention_dh##DH##_bq##BQ##_bkv##BKV##_bf16_smem(int lookahead) { \
     return (long long)attention::wg::smem_bytes<DH, BKV>(lookahead);                     \
+  }
+#define ATTENTION_INSTANTIATE_BF16_DV(DH, DV, BQ, BKV)                                    \
+  extern "C" int attention_dh##DH##_dv##DV##_bq##BQ##_bkv##BKV##_bf16(                    \
+      const attention::bf16_t* q, const attention::bf16_t* k, const attention::bf16_t* v, \
+      attention::bf16_t* out, int B, int Tq, int Tkv, int H, int Hk, int causal,         \
+      int q_offset, float scale, int lookahead, void* stream) {                          \
+    return attention::wg::launch<DH, BQ, BKV, DV>(q, k, v, out, B, Tq, Tkv, H, Hk,       \
+                                                  causal, q_offset, scale, lookahead,    \
+                                                  stream);                               \
+  }                                                                                      \
+  extern "C" long long attention_dh##DH##_dv##DV##_bq##BQ##_bkv##BKV##_bf16_smem(        \
+      int lookahead) {                                                                   \
+    return (long long)attention::wg::smem_bytes<DH, BKV, DV>(lookahead);                 \
   }

@@ -21,9 +21,11 @@ fp32 its ring of ``lookahead + 1`` stages of 32 keys of K and V and the
 split slice, whatever the blocks (98–162 kB at Dh 128, 50–82 kB at 64,
 14–22 kB at 16); in bf16 the wgmma kernel's 128-row q tile and its
 ring of ``lookahead + 1`` stages of 64- or 128-key K and V tiles
-(65–225 kB at Dh 128, 33–113 at 64, 9–29 at 16), at the head dims the
-library is instantiated for (16, 64, 128); any other Dh has no valid
-point.
+(65–225 kB at Dh 128, 33–113 at 64, 9–29 at 16; at q and k 192 over
+v 128, 131–214 kB up to two stages, 296 kB at three: no point with
+``lookahead`` 2 and 128-key tiles), at the head dims the library is
+instantiated for (16, 64, 128, and (192, 128) in bf16); any other Dh has
+no valid point.
 """
 
 from __future__ import annotations
@@ -37,8 +39,8 @@ from repro_torch.core.profiles import TPU_V5E, DeviceProfile
 from repro_torch.core.tuning_space import Param, Point, TuningSpace
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.attention.attention import (
-    HEAD_DIMS, build_kernels, flash_attention_cuda, flash_attention_plain,
-    smem_bytes, symbol)
+    HEAD_DIMS, SPLIT_HEAD_DIMS, build_kernels, flash_attention_cuda,
+    flash_attention_plain, smem_bytes, symbol)
 from repro_torch.kernels.attention.ref import attention_ref
 from repro_torch.kernels.catalog import (
     KernelDef, example_fill, spec_capacity_kb, spec_on_cuda, torch_dtype)
@@ -54,7 +56,7 @@ DEFAULT_POINT: Point = {
 def flash_attention_torch(
     q: torch.Tensor,      # (B, Tq, H, Dh)
     k: torch.Tensor,      # (B, Tkv, Hk, Dh)
-    v: torch.Tensor,      # (B, Tkv, Hk, Dh)
+    v: torch.Tensor,      # (B, Tkv, Hk, Dv): Dv is Dh but for latent attention
     *,
     causal: bool = True,
     scale: float | None = None,
@@ -76,6 +78,7 @@ def flash_attention_torch(
     """
     B, Tq, H, Dh = q.shape
     _, Tk, Hk, _ = k.shape
+    Dv = v.shape[3]
     G = H // Hk
     scale = float(scale if scale is not None else Dh ** -0.5)
     qc = min(q_chunk, Tq)
@@ -95,7 +98,7 @@ def flash_attention_torch(
     # (n_q, B, Hk, G, qc, Dh) and (n_k, B, Hk, kc, Dh)
     qb = q.reshape(B, n_q, qc, Hk, G, Dh).permute(1, 0, 3, 4, 2, 5)
     kb = k.reshape(B, n_k, kc, Hk, Dh).permute(1, 0, 3, 2, 4)
-    vb = v.reshape(B, n_k, kc, Hk, Dh).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(B, n_k, kc, Hk, Dv).permute(1, 0, 3, 2, 4)
     q_ids = torch.arange(qc, device=dev)
     k_ids = torch.arange(kc, device=dev)
 
@@ -122,7 +125,7 @@ def flash_attention_torch(
     def q_step(qcur, iq):
         m = torch.full((B, Hk, G, qc), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, Hk, G, qc), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, Hk, G, qc, Dh), dtype=torch.float32, device=dev)
+        acc = torch.zeros((B, Hk, G, qc, Dv), dtype=torch.float32, device=dev)
         q_pos = q_offset + iq * qc + q_ids[:, None]
         for ik in range(n_k):
             m, l, acc = step(kv_step, qcur, m, l, acc, kb[ik], vb[ik], q_pos, ik)
@@ -138,8 +141,8 @@ def flash_attention_torch(
             return fn(*args)
 
     outs = [step(q_step, qb[iq].to(score_dtype), iq) for iq in range(n_q)]
-    # (n_q, B, Hk, G, qc, Dh) -> (B, Tq, H, Dh)
-    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Tq_p, H, Dh)
+    # (n_q, B, Hk, G, qc, Dv) -> (B, Tq, H, Dv)
+    out = torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Tq_p, H, Dv)
     return out[:, :Tq].to(orig_dtype)
 
 
@@ -211,10 +214,13 @@ def make_space(
     vmem_kb: int = TPU_V5E.vmem_kb,
     hopper: bool = False,
     dtype_bytes: int = 4,
+    Dv: int | None = None,
 ) -> TuningSpace:
     """The reference's space. ``dtype_bytes`` (the inputs' element size)
-    counts only in the Hopper rule: the reference's validator counts
-    4-byte words whatever the type."""
+    and ``Dv`` (v's head dim where it differs from Dh: latent attention's
+    expanded prefill) count only in the Hopper rule: the reference's
+    validator counts 4-byte words whatever the type, at one head dim."""
+    split = Dv is not None and Dv != Dh
     params = (
         Param("block_q", (128, 256, 512), phase=1, switch_rank=0),
         Param("block_kv", (128, 256, 512, 1024), phase=1, switch_rank=1),
@@ -224,7 +230,9 @@ def make_space(
 
     def validator(p: Point) -> bool:
         if hopper:
-            return Dh in HEAD_DIMS and smem_bytes(p, Dh, dtype_bytes) <= vmem_kb * 1024
+            dims_ok = ((Dh, Dv) in SPLIT_HEAD_DIMS and dtype_bytes == 2) if split \
+                else Dh in HEAD_DIMS
+            return dims_ok and smem_bytes(p, Dh, dtype_bytes, Dv=Dv) <= vmem_kb * 1024
         bq, bkv = min(p["block_q"], Tq), min(p["block_kv"], Tkv)
         words = bq * Dh * 2 + 2 * bkv * Dh + bq * bkv + 2 * bq
         return words * 4 <= vmem_kb * 1024
@@ -265,7 +273,7 @@ def attention_cost_model(
 
 
 def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int,
-             Dh: int, dtype: torch.dtype):
+             Dh: int, dtype: torch.dtype, Dv: int | None = None):
     """The variant serving ``point`` for inputs of ``dtype``: the hand
     kernel on CUDA (its instantiation resolved now, so a missing one
     raises here), the plain version on the CPU."""
@@ -273,7 +281,7 @@ def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int
     lib = None
     if device.type == "cuda":
         lib = build_kernels(device)
-        lib.resolve(symbol(pt, Tq, Tkv, Dh, dtype))
+        lib.resolve(symbol(pt, Tq, Tkv, Dh, dtype, Dv=Dv))
 
     def fn(q, k, v):
         return flash_attention_cuda(q, k, v, pt, causal=causal, lib=lib)
@@ -285,7 +293,7 @@ def _variant(point: Point, device: torch.device, causal: bool, Tq: int, Tkv: int
 def _catalog_generate(point: Point, spec: dict[str, Any]):
     return _variant(point, resolve_device(spec.get("device")),
                     bool(spec.get("causal", True)), spec["Tq"], spec["Tkv"],
-                    spec["Dh"], _dtype(spec))
+                    spec["Dh"], _dtype(spec), spec.get("Dv"))
 
 
 def _dtype(spec: dict[str, Any]) -> torch.dtype:
@@ -293,10 +301,13 @@ def _dtype(spec: dict[str, Any]) -> torch.dtype:
 
 
 def _extract_spec(q, k, v, **overrides: Any) -> dict[str, Any]:
+    """The call's spec; ``Dv`` (v's head dim) only where it differs from
+    ``Dh``, so the specs of every other call are the reference's."""
     B, Tq, H, Dh = q.shape
     _, Tkv, Hk, _ = k.shape
+    split = {"Dv": int(v.shape[3])} if v.shape[3] != Dh else {}
     return {"B": int(B), "Tq": int(Tq), "Tkv": int(Tkv), "H": int(H),
-            "Hk": int(Hk), "Dh": int(Dh), "causal": True,
+            "Hk": int(Hk), "Dh": int(Dh), **split, "causal": True,
             "dtype": str(q.dtype).removeprefix("torch."),
             "device": str(q.device), **overrides}
 
@@ -304,8 +315,9 @@ def _extract_spec(q, k, v, **overrides: Any) -> dict[str, Any]:
 def _shapes(spec: dict[str, Any]):
     dt = spec.get("dtype", "float32")
     q = (spec["B"], spec["Tq"], spec["H"], spec["Dh"])
-    kv = (spec["B"], spec["Tkv"], spec["Hk"], spec["Dh"])
-    return ((q, dt), (kv, dt), (kv, dt))
+    k = (spec["B"], spec["Tkv"], spec["Hk"], spec["Dh"])
+    v = (spec["B"], spec["Tkv"], spec["Hk"], spec.get("Dv", spec["Dh"]))
+    return ((q, dt), (k, dt), (v, dt))
 
 
 def _example_args(spec: dict[str, Any]) -> tuple:
@@ -324,7 +336,7 @@ KERNEL = KernelDef(
     make_space=lambda spec: make_space(
         spec["Tq"], spec["Tkv"], spec["Dh"], vmem_kb=spec_capacity_kb(spec),
         hopper=spec_on_cuda(spec),
-        dtype_bytes=_dtype(spec).itemsize),
+        dtype_bytes=_dtype(spec).itemsize, Dv=spec.get("Dv")),
     generate=_catalog_generate,
     cost_model=attention_cost_model,
     extract_spec=_extract_spec,

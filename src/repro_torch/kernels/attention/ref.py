@@ -13,7 +13,7 @@ NEG_INF = -1e30
 def attention_ref(
     q: torch.Tensor,      # (B, Tq, H, Dh)
     k: torch.Tensor,      # (B, Tkv, Hk, Dh)
-    v: torch.Tensor,      # (B, Tkv, Hk, Dh)
+    v: torch.Tensor,      # (B, Tkv, Hk, Dv)
     *,
     causal: bool = True,
     scale: float | None = None,
@@ -39,4 +39,4 @@ def attention_ref(
     s = torch.where(mask[None, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
-    return o.reshape(B, Tq, H, Dh).to(q.dtype)
+    return o.reshape(B, Tq, H, v.shape[3]).to(q.dtype)

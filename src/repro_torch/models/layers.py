@@ -55,7 +55,8 @@ eager call routes through the plane as in the reference. Otherwise:
   * windowed or offset attention, decode attention (one query over the
     cache, self or cross), ``layer_norm``, and everything on the CPU, run
     the plain PyTorch versions (on the card, the flash kernel takes heads
-    of 16, 64 and 128 and raises at any other head dim);
+    of 16, 64 and 128, and q and k of 192 over v of 128, and raises at
+    any other head dims); so does latent attention's absorbed decode;
   * the projections, the MLP and the MoE experts are ``torch.matmul`` /
     ``torch.einsum`` in full fp32 (the reference leaves these einsums to
     XLA, outside any Pallas kernel), with TF32 off, PyTorch's default.
@@ -67,7 +68,7 @@ import math
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, YarnScaling
 from repro_torch.distributed import sharding as shlib
 from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.attention.attention import (
@@ -77,6 +78,7 @@ from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import (
     DEFAULT_POINT as RMSNORM_POINT, RMSNormFunction, rmsnorm_cuda)
 from repro_torch.models.params import ParamDef
+from repro_torch.runtime import spans
 from repro_torch.runtime.kernel_plane import active_plane, in_step_program
 
 
@@ -177,18 +179,49 @@ def norm(x: torch.Tensor, scale: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ rope
-def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+def rope_freqs(d_head: int, theta: float, device=None,
+               scaling: "YarnScaling | None" = None) -> torch.Tensor:
+    """The rotation frequencies of ``d_head / 2`` pairs. Under YaRN
+    (``scaling``, DeepSeek-V2's ``yarn_find_correction_range`` and
+    ``yarn_linear_ramp_mask``): pairs below the correction range keep
+    their frequency, pairs above it are divided by ``factor``, and a
+    linear ramp blends the two between."""
     half = d_head // 2
-    return theta ** (-torch.arange(half, dtype=torch.float32, device=device) / half)
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32, device=device) / half)
+    if scaling is None:
+        return freqs
+
+    def correction_dim(rotations: float) -> float:
+        return (d_head * math.log(scaling.original_max_position_embeddings
+                                  / (rotations * 2 * math.pi))) / (2 * math.log(theta))
+
+    lo = max(math.floor(correction_dim(scaling.beta_fast)), 0)
+    hi = min(math.ceil(correction_dim(scaling.beta_slow)), d_head - 1)
+    ramp = ((torch.arange(half, dtype=torch.float32, device=device) - lo)
+            / (hi - lo if hi != lo else 0.001)).clamp(0, 1)
+    return freqs / scaling.factor * ramp + freqs * (1 - ramp)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, T, H, Dh); positions: (B, T) int. Interleaved pairs."""
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """DeepSeek-V2's ``yarn_get_mscale``."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               scaling: "YarnScaling | None" = None) -> torch.Tensor:
+    """x: (B, T, H, Dh); positions: (B, T) int. Interleaved pairs; under
+    YaRN (``scaling``) its frequencies, and cos and sin times its
+    ``mscale`` over its ``mscale_all_dim`` (1 where the two are equal)."""
     B, T, H, Dh = x.shape
-    freqs = rope_freqs(Dh, theta, x.device)                    # (Dh/2,)
+    freqs = rope_freqs(Dh, theta, x.device, scaling)           # (Dh/2,)
     ang = positions[..., None].to(torch.float32) * freqs       # (B, T, Dh/2)
     cos = torch.cos(ang)[:, :, None, :]                        # (B, T, 1, Dh/2)
     sin = torch.sin(ang)[:, :, None, :]
+    if scaling is not None:
+        m = (yarn_mscale(scaling.factor, scaling.mscale)
+             / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     xp = x.to(torch.float32).reshape(B, T, H, Dh // 2, 2)
     x1, x2 = xp[..., 0], xp[..., 1]
     out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
@@ -352,21 +385,22 @@ def _rotate(q, k, positions, cfg: ModelConfig):
 
 
 def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0,
-            chunks: tuple[int, int] | None = None):
+            chunks: tuple[int, int] | None = None, scale: float | None = None):
     """The step-programs' attention (see the module docstring): the
-    plane's chunks unless ``chunks`` are given."""
+    plane's chunks unless ``chunks`` are given; ``scale`` the scores'
+    (``Dh ** -0.5`` by default)."""
     qc, kc = chunks if chunks is not None else plane_attn_chunks(cfg)
     if shlib.is_dtensor(q):
         return _attend_local(q, k, v, cfg, causal=causal, q_offset=q_offset,
-                             chunks=(qc, kc))
+                             chunks=(qc, kc), scale=scale)
     if q.is_cuda and q_offset == 0 and cfg.window is None:
         point = {"block_q": min(qc, q.shape[1]), "block_kv": min(kc, k.shape[1])}
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if _needs_grad(q, k, v):
-            return FlashAttentionFunction.apply(q, k, v, point, causal)
-        return flash_attention_cuda(q, k, v, point, causal=causal)
+            return FlashAttentionFunction.apply(q, k, v, point, causal, scale)
+        return flash_attention_cuda(q, k, v, point, causal=causal, scale=scale)
     return flash_attention_torch(
-        q, k, v, causal=causal, q_offset=q_offset, window=cfg.window,
+        q, k, v, causal=causal, scale=scale, q_offset=q_offset, window=cfg.window,
         q_chunk=qc, k_chunk=kc, scores_f32=cfg.attn_scores_f32,
         # inside a block checkpointed in full the attention checkpoints its
         # own chunks too, as the reference's does; under remat "dots" the
@@ -405,7 +439,7 @@ def _take_heads(kl, vl, pick):
 
 
 def _attend_local(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int,
-                  chunks: tuple[int, int]):
+                  chunks: tuple[int, int], scale: float | None = None):
     """:func:`_attend` on each rank's batch rows and heads, the rank's KV
     heads picked by :func:`_kv_pick` (so the local GQA map stays right on
     every rank where the query heads are sharded and the KV heads are
@@ -423,7 +457,7 @@ def _attend_local(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int,
     def local(ql, kl, vl):
         kl, vl = _take_heads(kl, vl, pick)
         return _attend(ql, kl, vl, cfg, causal=causal, q_offset=q_offset,
-                       chunks=chunks)
+                       chunks=chunks, scale=scale)
 
     return shlib.on_local(local, q, k, v, out_like=q,
                           grad_placements=(None, kv_grad, kv_grad))
@@ -480,6 +514,8 @@ def self_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Full-sequence attention (train / prefill / encoder)."""
+    if cfg.kv_lora_rank:
+        return _mla_expanded(x, p, cfg, positions)[0]
     q, k, v = qkv_proj(x, p, cfg)
     q, k = _rotate(q, k, positions, cfg)
     plane = _plane_routes()
@@ -501,7 +537,11 @@ def self_attention_with_cache(
     *,
     positions: torch.Tensor,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
-    """Prefill: returns output and the (k, v) cache to keep."""
+    """Prefill: returns output and the (k, v) cache to keep (under latent
+    attention the normed latent and the rotated shared rope key:
+    :func:`_mla_expanded`)."""
+    if cfg.kv_lora_rank:
+        return _mla_expanded(x, p, cfg, positions)
     q, k, v = qkv_proj(x, p, cfg)
     q, k = _rotate(q, k, positions, cfg)
     o = _attend(q, k, v, cfg, causal=True)
@@ -533,7 +573,11 @@ def decode_self_attention(
 
     The new token's k and v are written into the cache in place (the
     reference returns an updated copy that XLA aliases with its input).
+    Under latent attention the cache is the latent one and the step the
+    absorbed one (:func:`_mla_decode`).
     """
+    if cfg.kv_lora_rank:
+        return _mla_decode(x, p, cfg, cache_k, cache_v, pos, rope_pos)
     q, k, v = qkv_proj(x, p, cfg)
     B = x.shape[0]
     positions = torch.full((B, 1), rope_pos if rope_pos is not None else pos,
@@ -573,6 +617,105 @@ def decode_self_attention(
         o = decode_attention(q, cache_k, cache_v, length=length,
                              k_chunk=plane_decode_chunk(cfg))
     return attn_out(o, p, cfg), (cache_k, cache_v)
+
+
+# ------------------------------------------------------ latent attention
+def mla_defs(cfg: ModelConfig) -> dict:
+    """DeepSeek-V2's latent attention without a query latent (``q_lora_rank``
+    null): ``wq`` to every head's [nope | rope] query, ``wkv_a`` to the
+    latent and the one rope key all heads share, the latent's RMSNorm,
+    ``wkv_b`` from the latent to every head's [nope key | value], ``wo``."""
+    d, H, R = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": ParamDef((d, H, nope + rope), ("embed", "heads", None),
+                       scale=1.0 / math.sqrt(d)),
+        "wkv_a": ParamDef((d, R + rope), ("embed", None), scale=1.0 / math.sqrt(d)),
+        "kv_norm": ParamDef((R,), (None,), init="ones"),
+        "wkv_b": ParamDef((R, H, nope + dv), (None, "heads", None),
+                          scale=1.0 / math.sqrt(R)),
+        "wo": ParamDef((H, dv, d), ("heads", None, "embed"),
+                       scale=1.0 / math.sqrt(H * dv)),
+    }
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """The scores' scale: ``(nope + rope) ** -0.5``, under YaRN times
+    ``yarn_mscale(factor, mscale_all_dim)`` squared."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    if cfg.rope_scaling is not None:
+        m = yarn_mscale(cfg.rope_scaling.factor, cfg.rope_scaling.mscale_all_dim)
+        scale *= m * m
+    return scale
+
+
+def _mla_project(x, p, cfg: ModelConfig, positions):
+    """One ``mla.project`` span: the queries (B, T, H, nope + rope), their
+    rope part rotated, the normed latent (B, T, 1, R) and the rotated rope
+    key (B, T, 1, rope)."""
+    nope, R = cfg.qk_nope_head_dim, cfg.kv_lora_rank
+    with spans.layer("mla.project"):
+        q = _proj(x, p["wq"])
+        ckv = torch.matmul(x, p["wkv_a"].to(x.dtype))
+        c = rms_norm(ckv[..., :R], p["kv_norm"])[:, :, None]
+        k_pe = apply_rope(ckv[:, :, None, R:], positions, cfg.rope_theta, cfg.rope_scaling)
+        q_pe = apply_rope(q[..., nope:], positions, cfg.rope_theta, cfg.rope_scaling)
+        q = torch.cat([q[..., :nope], q_pe], dim=-1)
+    return q, c, k_pe
+
+
+def _mla_expanded(x, p, cfg: ModelConfig, positions):
+    """Latent attention over a whole sequence, expanded: the latent
+    through ``wkv_b`` (``mla.expand``) to every head's nope key and value,
+    the keys [nope | the shared rope key], causal flash attention at q and
+    k head dim nope + rope and v head dim ``v_head_dim`` (``mla.attend``).
+    Returns the output and the cache to keep: the normed latent and the
+    rotated rope key."""
+    pos2d = positions if positions.dim() == 2 else positions[None]
+    q, c, k_pe = _mla_project(x, p, cfg, pos2d)
+    B, T, H, _ = q.shape
+    nope = cfg.qk_nope_head_dim
+    with spans.layer("mla.expand"):
+        kv = _proj(c[:, :, 0], p["wkv_b"])                      # (B, T, H, nope + dv)
+        k = torch.cat([kv[..., :nope], k_pe.expand(B, T, H, -1)], dim=-1)
+        v = kv[..., nope:]
+    with spans.layer("mla.attend", keys=T, path="flash"):
+        o = _attend(q, k, v, cfg, causal=True, scale=mla_scale(cfg))
+    return attn_out(o, p, cfg), (c, k_pe)
+
+
+def _mla_decode(x, p, cfg: ModelConfig, cache_c, cache_pe, pos: int,
+                rope_pos: int | None = None):
+    """One token of latent attention, absorbed, over the latent cache alone
+    (``cache_c`` (B, S, 1, R), ``cache_pe`` (B, S, 1, rope), the new slot
+    written in place): each head's nope query through its ``wkv_b`` key
+    columns into the latent (``mla.absorb``), scores against the latents
+    and the rope keys, the softmax in fp32, the weighted sum of the
+    latents (``mla.attend``), then each head's value columns
+    (``mla.unabsorb``). Products in the compute type, which accumulate in
+    fp32; no key or value of 16 heads is ever built."""
+    B = x.shape[0]
+    positions = torch.full((B, 1), rope_pos if rope_pos is not None else pos,
+                           dtype=torch.int32, device=x.device)
+    q, c, k_pe = _mla_project(x, p, cfg, positions)
+    S = cache_c.shape[1]
+    slot = min(pos, S - 1)
+    _write_slot(cache_c, c, slot)
+    _write_slot(cache_pe, k_pe, slot)
+    length = min(pos + 1, S)
+    nope = cfg.qk_nope_head_dim
+    w_kv = p["wkv_b"].to(x.dtype)                               # (R, H, nope + dv)
+    with spans.layer("mla.absorb"):
+        q_lat = torch.einsum("bhn,rhn->bhr", q[:, 0, :, :nope], w_kv[..., :nope])
+    with spans.layer("mla.attend", keys=length, path="latent"):
+        lat = cache_c[:, :length, 0]                            # (B, length, R)
+        s = (torch.bmm(q_lat, lat.transpose(1, 2)).float()
+             + torch.bmm(q[:, 0, :, nope:], cache_pe[:, :length, 0].transpose(1, 2)).float())
+        w = torch.softmax(s * mla_scale(cfg), dim=-1)
+        o_lat = torch.bmm(w.to(lat.dtype), lat)                 # (B, H, R)
+    with spans.layer("mla.unabsorb"):
+        o = torch.einsum("bhr,rhv->bhv", o_lat, w_kv[..., nope:])
+    return attn_out(o[:, None], p, cfg), (cache_c, cache_pe)
 
 
 def cross_attention_defs(cfg: ModelConfig) -> dict:

@@ -44,6 +44,12 @@ def model_kernel_specs(
     when given, the flash-decoding ``decode_attention`` kernel registers
     keyed per cache-length bucket (training loops pass nothing — they
     have no decode step).
+
+    Latent attention (``cfg.kv_lora_rank``) registers its expanded
+    prefill's flash attention at q and k head dim ``d_head`` over v head
+    dim ``v_head_dim``, every head its own keys, and no
+    ``decode_attention``: its decode reads the latent cache in plain
+    PyTorch (:func:`repro_torch.models.layers._mla_decode`).
     """
     dt = str(cfg.compute_dtype).removeprefix("torch.")
     specs: list[tuple[str, dict]] = [
@@ -53,7 +59,12 @@ def model_kernel_specs(
         ("matmul", {"M": batch * seq, "N": cfg.d_ff, "K": cfg.d_model,
                     "dtype": dt}),
     ]
-    if cfg.n_heads and cfg.d_head:
+    if cfg.kv_lora_rank:
+        specs.append(
+            ("attention", {"B": batch, "Tq": seq, "Tkv": seq, "H": cfg.n_heads,
+                           "Hk": cfg.n_heads, "Dh": cfg.d_head, "Dv": cfg.v_head_dim,
+                           "causal": True, "dtype": dt}))
+    elif cfg.n_heads and cfg.d_head:
         specs.append(
             ("attention", {"B": batch, "Tq": seq, "Tkv": seq,
                            "H": cfg.n_heads, "Hk": cfg.n_kv_heads,

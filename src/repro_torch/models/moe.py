@@ -66,18 +66,20 @@ def capacity(cfg: ModelConfig, group_len: int | None = None) -> int:
     return max(4, math.ceil(S / cfg.n_experts * cfg.capacity_factor))
 
 
-def route(xg: torch.Tensor, router: torch.Tensor, k: int):
+def route(xg: torch.Tensor, router: torch.Tensor, k: int, renormalise: bool = True):
     """fp32 router over groups xg (G, S, d): softmax probabilities
-    (G, S, E), the renormalised top-k gates and their expert indices
-    (G, S, k). Equal probabilities (the zero-padded tail's are uniform)
-    go to the lower expert index first, as ``jax.lax.top_k`` orders
-    them: a stable descending sort, where ``torch.topk`` promises no
-    order among ties."""
+    (G, S, E), the top-k gates (renormalised to sum to one unless
+    ``renormalise`` is False: DeepSeek-V2's ``norm_topk_prob``) and their
+    expert indices (G, S, k). Equal probabilities (the zero-padded tail's
+    are uniform) go to the lower expert index first, as ``jax.lax.top_k``
+    orders them: a stable descending sort, where ``torch.topk`` promises
+    no order among ties."""
     logits = xg.to(torch.float32) @ router.to(torch.float32)           # (G, S, E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_w, gate_idx = gate_w[..., :k], gate_idx[..., :k]
-    gate_w = gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9)
+    if renormalise:
+        gate_w = gate_w / torch.clamp(gate_w.sum(dim=-1, keepdim=True), min=1e-9)
     return probs, gate_w, gate_idx
 
 
@@ -164,7 +166,7 @@ def _moe_sharded(xg, p: dict, cfg: ModelConfig, C: int):
     like_sum = shlib.template(xg, (E,), torch.float32, shlib.partial_over(xg))
 
     def routing(xl, rl):
-        probs, gate_w, gate_idx = route(xl, rl, k)
+        probs, gate_w, gate_idx = route(xl, rl, k, cfg.norm_topk_prob)
         return probs.sum(dim=(0, 1)), gate_w, gate_idx, _expert_counts(gate_idx, E)
 
     with spans.layer("moe.route"):
@@ -237,7 +239,7 @@ def _moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
             out = shlib.replicated(out)
     else:
         with spans.layer("moe.route"):
-            probs, gate_w, gate_idx = route(xg, p["router"], k)
+            probs, gate_w, gate_idx = route(xg, p["router"], k, cfg.norm_topk_prob)
             aux = _aux_loss(probs, gate_idx, E, k)
         w_gate, w_up, w_down = (p[n].to(xg.dtype) for n in ("w_gate", "w_up", "w_down"))
         out = _experts(xg, gate_w, gate_idx, w_gate, w_up, w_down, cfg, C)

@@ -62,26 +62,47 @@ def stack_defs(defs: dict, n: int) -> dict:
 def layer_defs(cfg: ModelConfig) -> dict:
     defs = {
         "ln1": ParamDef((cfg.d_model,), (None,), init="ones"),
-        "attn": L.attention_defs(cfg),
+        "attn": L.mla_defs(cfg) if cfg.kv_lora_rank else L.attention_defs(cfg),
     }
     if not cfg.parallel_block:
         defs["ln2"] = ParamDef((cfg.d_model,), (None,), init="ones")
-    defs["ffn"] = moe_defs(cfg) if cfg.family == "moe" else L.mlp_defs(cfg)
+    if not cfg.first_k_dense:
+        defs["ffn"] = moe_defs(cfg) if cfg.family == "moe" else L.mlp_defs(cfg)
     return defs
 
 
 def transformer_defs(cfg: ModelConfig) -> dict:
-    return {
+    """The tree: ``tok``, ``layers`` (stacked), ``ln_f``. Where the first
+    ``first_k_dense`` layers have a dense FFN and the rest experts, the
+    FFNs are two stacks of their own beside ``layers``: ``dense_ffn``
+    (the leading layers', ``dense_d_ff`` wide) and ``moe_ffn``."""
+    defs = {
         "tok": L.embedding_defs(cfg),
         "layers": stack_defs(layer_defs(cfg), cfg.n_layers),
         "ln_f": ParamDef((cfg.d_model,), (None,), init="ones"),
     }
+    k = cfg.first_k_dense
+    if k:
+        defs["dense_ffn"] = stack_defs(L.mlp_defs(cfg, d_ff=cfg.dense_d_ff), k)
+        defs["moe_ffn"] = stack_defs(moe_defs(cfg), cfg.n_layers - k)
+    return defs
 
 
 def layer_params(stacked: dict, i: int) -> dict:
     """Layer ``i``'s params: views into the stacked tree."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+def block_params(params: dict, cfg: ModelConfig, i: int) -> dict:
+    """Block ``i``'s params: its layer of ``layers``, and where the FFNs
+    have stacks of their own, its FFN from the one it belongs to."""
+    lp = layer_params(params["layers"], i)
+    k = cfg.first_k_dense
+    if k:
+        lp["ffn"] = (layer_params(params["dense_ffn"], i) if i < k
+                     else layer_params(params["moe_ffn"], i - k))
+    return lp
 
 
 def checkpointed(fn):
@@ -99,8 +120,9 @@ def checkpointed(fn):
 
 def ffn_apply(x: torch.Tensor, lp: dict, cfg: ModelConfig):
     """The block's FFN and its load-balancing loss (0.0 for a dense FFN:
-    no device allocation in a decode step)."""
-    if cfg.family == "moe":
+    no device allocation in a decode step): the experts where the layer
+    has a router, else the dense MLP at the width of its weights."""
+    if "router" in lp["ffn"]:
         return moe_ffn(x, lp["ffn"], cfg)
     return L.mlp(x, lp["ffn"], cfg), 0.0
 
@@ -177,16 +199,17 @@ class TransformerLM(nn.Module):
         """x: (B, T, d) embedded input -> (final hidden, aux loss)."""
         aux = x.new_zeros((), dtype=torch.float32)
         for i, block in enumerate(self.layers):
-            x, a = self._remat_block(block, positions)(x, layer_params(params["layers"], i))
+            x, a = self._remat_block(block, positions)(x, block_params(params, self.cfg, i))
             aux = aux + a
         return L.norm(x, params["ln_f"], self.cfg.norm), aux
 
     def forward_prefill(self, params: dict, x: torch.Tensor, positions: torch.Tensor):
         """Causal forward that also returns the stacked (L, B, T, Hk, Dh)
-        KV caches."""
+        KV caches (under latent attention the (L, B, T, 1, kv_lora_rank)
+        latents and the (L, B, T, 1, qk_rope_head_dim) rope keys)."""
         ks, vs = [], []
         for i, block in enumerate(self.layers):
-            x, (k, v) = block.prefill(x, layer_params(params["layers"], i), positions)
+            x, (k, v) = block.prefill(x, block_params(params, self.cfg, i), positions)
             ks.append(k)
             vs.append(v)
         return L.norm(x, params["ln_f"], self.cfg.norm), (torch.stack(ks), torch.stack(vs))
@@ -229,15 +252,20 @@ class TransformerLM(nn.Module):
             ks, vs = cache
             h = L.embed_tokens(tokens, params["tok"], cfg)    # (B, 1, d)
             for i, block in enumerate(self.layers):
-                h = block.decode(h, layer_params(params["layers"], i), ks[i], vs[i],
+                h = block.decode(h, block_params(params, cfg, i), ks[i], vs[i],
                                  int(pos), None if rope_pos is None else int(rope_pos))
             h = L.norm(h, params["ln_f"], cfg.norm)
             return L.logits_out(h, params["tok"], cfg), (ks, vs)
 
     def init_cache_shape(self, batch: int, max_len: int) -> tuple[tuple[int, ...], ...]:
-        """The shape of each cache tensor: (k, v)."""
+        """The shape of each cache tensor: (k, v); under latent attention
+        (the normed latent, the rotated rope key), ``kv_lora_rank +
+        qk_rope_head_dim`` values a token a layer."""
         cfg = self.cfg
         S = min(max_len, cfg.window) if cfg.window else max_len
+        if cfg.kv_lora_rank:
+            return ((cfg.n_layers, batch, S, 1, cfg.kv_lora_rank),
+                    (cfg.n_layers, batch, S, 1, cfg.qk_rope_head_dim))
         return ((cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.d_head),) * 2
 
     def init_cache(self, batch: int, max_len: int, *,

@@ -37,6 +37,14 @@ The spans, by tier:
   the chunk's groups), ``moe.experts`` (gate, up, SiLU, down, once over
   the stack) and ``moe.combine`` (the weighted scatter back to the
   tokens).
+  Under latent attention (``repro_torch.models.layers``, one set a
+  layer): ``mla.project`` (the queries, the latent and its RMSNorm, the
+  rope key, both rotations), in a prefill ``mla.expand`` (the latent
+  through ``wkv_b`` to every head's keys and values), in a decode step
+  ``mla.absorb`` (the nope queries into the latent) and ``mla.unabsorb``
+  (the latent output to every head's values), and ``mla.attend``
+  (attributes ``keys``, the keys attended, and ``path``: ``flash`` in a
+  prefill, ``latent`` in a decode step).
 
 A span opened on a thread inside :func:`request` carries that request's
 number; its parent is the span open on the same thread when it opened.

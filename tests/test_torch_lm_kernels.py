@@ -232,14 +232,17 @@ def test_lm_instantiation_units():
     library with its error-string unit: matmul and attention once per
     input type and path (fp32 without a suffix, bf16's wgmma kernels with
     ``_bf16``, its mma kernels with ``_bf16_mma``), rmsnorm's macro
-    taking the type as an argument."""
+    taking the type as an argument; and attention's split head dims
+    (q and k 192 over v 128) once more on bf16's wgmma kernels."""
     paths = (("", ""), ("_BF16", "_bf16"), ("_BF16_MMA", "_bf16_mma"))
-    for mod, macro, count, types in (
-            (tmatmul_kernel, "MATMUL_INSTANTIATE", 108, paths),
-            (tattn_kernel, "ATTENTION_INSTANTIATE", 45, paths),
-            (trmsnorm_kernel, "RMSNORM_INSTANTIATE", 8, (("", ""),))):
+    for mod, macro, count, types, split in (
+            (tmatmul_kernel, "MATMUL_INSTANTIATE", 108, paths, 0),
+            (tattn_kernel, "ATTENTION_INSTANTIATE", 45, paths, 15),
+            (trmsnorm_kernel, "RMSNORM_INSTANTIATE", 8, (("", ""),), 0)):
         inst = mod.instantiations()
-        assert len(inst) == count * len(types) == len(set(inst.values()))
+        assert len(inst) == count * len(types) + split == len(set(inst.values()))
+        dv = [sym for sym, line in inst.items() if line.startswith(macro + "_BF16_DV(")]
+        assert len(dv) == split and all(sym.endswith("_bf16") and "_dv" in sym for sym in dv)
         for sfx, sym_sfx in types:
             mine = [sym for sym, line in inst.items() if line.startswith(macro + sfx + "(")]
             assert len(mine) == count

@@ -238,3 +238,68 @@ def test_decode_tokens_per_s_counts_the_decoded_tokens_only(dense):
     assert out["tokens"].shape == (3, 5)
     # the prefill gives the first token; the decode steps the other 4
     assert out["decode_tokens_per_s"] * out["decode_s"] == pytest.approx(3 * 4)
+
+
+@pytest.fixture(scope="module")
+def mla():
+    cfg = get_config("deepseek-v2-lite").reduced()
+    params = init_tree(build_model(cfg).param_defs(), torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(5))
+    return cfg, params, tokens
+
+
+def test_latent_attention_spans_nest_in_the_serve_loops_steps(mla):
+    """Under ``recording()``, a request's prefill records per layer
+    ``mla.project``, ``mla.expand`` and ``mla.attend`` (path ``flash``,
+    the prompt's keys) inside ``serve.prefill``; each decode step per
+    layer ``mla.project``, ``mla.absorb``, ``mla.attend`` (path
+    ``latent``, the keys so far) and ``mla.unabsorb`` inside
+    ``serve.decode_step``."""
+    cfg, params, tokens = mla
+    start = last_id()
+    with spans.recording():
+        generate(cfg, {"tokens": tokens.clone(), "params": params}, ServeConfig(max_new_tokens=3))
+    recs = new_records(start)
+    by_id = {r.id: r for r in recs}
+    n = cfg.n_layers
+    prefill = [r for r in recs if r.name == "serve.prefill"]
+    steps = [r for r in recs if r.name == "serve.decode_step"]
+    assert len(prefill) == 1 and len(steps) == 2
+
+    def step_of(r):
+        p = by_id.get(r.parent)
+        while p is not None and p.name not in ("serve.prefill", "serve.decode_step"):
+            p = by_id.get(p.parent)
+        return p
+
+    mla_recs = [r for r in recs if r.name.startswith("mla.")]
+    assert all(step_of(r) is not None for r in mla_recs)
+    counts = collections.Counter((step_of(r).id, r.name) for r in mla_recs)
+    assert {name: counts[(prefill[0].id, name)] for name in
+            ("mla.project", "mla.expand", "mla.attend", "mla.absorb", "mla.unabsorb")} == \
+        {"mla.project": n, "mla.expand": n, "mla.attend": n, "mla.absorb": 0, "mla.unabsorb": 0}
+    for i, step in enumerate(steps):
+        assert {name: counts[(step.id, name)] for name in
+                ("mla.project", "mla.expand", "mla.attend", "mla.absorb", "mla.unabsorb")} == \
+            {"mla.project": n, "mla.expand": 0, "mla.attend": n, "mla.absorb": n,
+             "mla.unabsorb": n}
+        attends = [r for r in mla_recs if r.name == "mla.attend" and step_of(r) is step]
+        assert all(r.attrs == {"keys": tokens.shape[1] + i + 1, "path": "latent"}
+                   for r in attends)
+    assert all(r.attrs == {"keys": tokens.shape[1], "path": "flash"} for r in mla_recs
+               if r.name == "mla.attend" and step_of(r) is prefill[0])
+
+
+def test_latent_attention_spans_are_off_outside_a_profiler(mla, monkeypatch):
+    cfg, params, tokens = mla
+    clock = CountingClock()
+    monkeypatch.setattr(spans, "_clock", clock)
+    model = build_model(cfg)
+    before = len(spans.records()), spans.dropped()
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens})
+        from repro_torch.runtime.serve_loop import widen_cache
+        cache = widen_cache(model, cache, tokens.shape[0], tokens.shape[1] + 1)
+        model.decode_step(params, cache, logits[:, -1].argmax(-1)[:, None], tokens.shape[1])
+    assert clock.calls == 0
+    assert (len(spans.records()), spans.dropped()) == before

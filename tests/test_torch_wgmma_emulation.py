@@ -19,7 +19,9 @@ Covered: matmul at ragged M, N and K edges (K and N multiples of 8, as
 the path requires), both orders, ``scratch`` 0 and 1, every
 ``lookahead``, 64- and 128-row tiles; attention causal and non-causal,
 with ``q_offset``, GQA, a ragged kv tail and a ragged q tile, at Dh 16,
-64 and 128 and both kv tiles; the path-choosing functions; and that the
+64 and 128 and both kv tiles, and at q and k head dim 192 over v head
+dim 128 (latent attention's expanded prefill), causal and ragged, at
+every ring depth that fits; the path-choosing functions; and that the
 wgmma launchers refuse what TMA cannot describe.
 
 Limits: matmul rtol 1e-5, atol 1e-4 (products of bf16 values are exact
@@ -73,7 +75,10 @@ def emulated(tmp_path_factory):
     wanted = {
         "matmul": [mm[tmatmul.symbol(p, BF16)] for p in MATMUL_POINTS],
         "attention": sorted({at[tattn.symbol(p, 1024, 1024, dh, BF16)]
-                             for p in ATTENTION_POINTS for dh in tattn.HEAD_DIMS}),
+                             for p in ATTENTION_POINTS for dh in tattn.HEAD_DIMS}
+                            | {at[tattn.symbol(p, 1024, 1024, dh, BF16, Dv=dv)]
+                               for p in ATTENTION_POINTS
+                               for dh, dv in tattn.SPLIT_HEAD_DIMS}),
     }
     procs = {}
     for family, lines in wanted.items():
@@ -161,13 +166,15 @@ def test_emulated_wgmma_matmul_refuses_what_tma_cannot_describe(emulated, N, K, 
     assert tmatmul.bf16_path(N, K, a.data_ptr(), b.data_ptr()) == "mma"
 
 
-def _attention(lib, q, k, v, point, *, causal=1, q_offset=0, lookahead=1, sms=3):
+def _attention(lib, q, k, v, point, *, causal=1, q_offset=0, lookahead=1, sms=3, scale=None):
     B, Tq, H, Dh = q.shape
     _, Tkv, Hk, _ = k.shape
-    out = torch.full_like(q, float("nan"))
-    rc = _launch(lib, tattn.symbol(point, Tq, Tkv, Dh, BF16), tattn._ARGTYPES,
+    Dv = v.shape[3]
+    out = torch.full((B, Tq, H, Dv), float("nan"), dtype=q.dtype)
+    rc = _launch(lib, tattn.symbol(point, Tq, Tkv, Dh, BF16, Dv=Dv), tattn._ARGTYPES,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tkv, H,
-                 Hk, causal, q_offset, Dh ** -0.5, lookahead, None, sms=sms)
+                 Hk, causal, q_offset, Dh ** -0.5 if scale is None else scale, lookahead, None,
+                 sms=sms)
     return rc, out
 
 
@@ -192,6 +199,32 @@ def test_emulated_wgmma_attention(emulated, Dh, case):
     want = tattn.flash_attention_plain(q, k, v, point, causal=bool(causal),
                                        q_offset=q_offset)
     assert got.dtype == BF16
+    torch.testing.assert_close(got.float(), want.float(), **ATTENTION_TOL)
+
+
+@pytest.mark.parametrize("case", [
+    # B, Tq, Tkv, H, causal, q_offset, point, lookahead
+    (1, 150, 150, 2, 1, 0, 0, 1),       # causal, a ragged q tile over two units, 128-key tiles
+    (2, 70, 70, 1, 1, 0, 1, 2),         # causal, 64-key tiles, three stages
+    (1, 40, 100, 2, 1, 60, 1, 0),       # offset queries over a ragged kv tail, one stage
+    (1, 100, 45, 2, 0, 0, 0, 0),        # non-causal over a ragged kv
+])
+def test_emulated_wgmma_attention_split_head_dims(emulated, case):
+    """Latent attention's expanded prefill: q and k of head dim 192, v and
+    the output of 128, every head its own keys, at YaRN's scale; a V tile
+    of two boxes beside a K tile of three."""
+    B, Tq, Tkv, H, causal, q_offset, pi, lookahead = case
+    (Dh, Dv), = tattn.SPLIT_HEAD_DIMS
+    point = ATTENTION_POINTS[pi]
+    assert tattn.smem_bytes(dict(point, lookahead=lookahead), Dh, 2, Dv=Dv) <= 232448
+    q = _bf16((B, Tq, H, Dh), seed=50)
+    k, v = _bf16((B, Tkv, H, Dh), seed=51), _bf16((B, Tkv, H, Dv), seed=52)
+    rc, got = _attention(emulated["attention"], q, k, v, point, causal=causal,
+                         q_offset=q_offset, lookahead=lookahead, scale=0.1147)
+    assert rc == 0
+    want = tattn.flash_attention_plain(q, k, v, point, causal=bool(causal),
+                                       q_offset=q_offset, scale=0.1147)
+    assert got.shape == want.shape == (B, Tq, H, Dv)
     torch.testing.assert_close(got.float(), want.float(), **ATTENTION_TOL)
 
 
